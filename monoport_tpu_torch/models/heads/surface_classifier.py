@@ -1,0 +1,68 @@
+"""Point-wise occupancy / color MLP (port of
+``monoport_tpu/models/heads/surface_classifier.py``).
+
+Linear layers over point-major [B, N, C], leaky-ReLU 0.01 between layers,
+and the PIFu skip-concat of the input feature into every layer after the
+first. Layer widths are explicit: ``weights.build_net`` reads them from
+the loaded params (a small test backbone gives a narrower head input
+than the published spec).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+LAST_OPS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, None: None}
+
+
+class SurfaceClassifier(nn.Module):
+    def __init__(self, filter_channels: Sequence[int],
+                 last_op: str | None = None):
+        super().__init__()
+        chans = list(filter_channels)
+        self.filter_channels = tuple(chans)
+        self.last_op = last_op
+        for i in range(len(chans) - 1):
+            in_dim = chans[i] + (chans[0] if i > 0 else 0)
+            self.add_module(f"filters_{i}", nn.Linear(in_dim, chans[i + 1]))
+        self.n_layers = len(chans) - 1
+
+    def layers(self) -> list[nn.Linear]:
+        return [getattr(self, f"filters_{i}") for i in range(self.n_layers)]
+
+    def forward(self, feature: torch.Tensor) -> torch.Tensor:
+        """[B, N, C_in] -> [B, N, C_out]."""
+        y = feature
+        for i, lin in enumerate(self.layers()):
+            if i > 0:
+                y = torch.cat([y, feature], dim=-1)
+            y = lin(y)
+            if i != self.n_layers - 1:
+                y = F.leaky_relu(y, negative_slope=0.01)
+        fn = LAST_OPS[self.last_op]
+        return fn(y) if fn is not None else y
+
+
+def PIFuNetGMLP(opt=None, filter_channels=None) -> SurfaceClassifier:
+    """Occupancy head: [257,1024,512,256,128,1] + sigmoid."""
+    return SurfaceClassifier(filter_channels or HEAD_SPECS["PIFuNetGMLP"][0],
+                             last_op="sigmoid")
+
+
+def PIFuNetCMLP(opt=None, filter_channels=None) -> SurfaceClassifier:
+    """Color head: [513,1024,512,256,128,3] + tanh."""
+    return SurfaceClassifier(filter_channels or HEAD_SPECS["PIFuNetCMLP"][0],
+                             last_op="tanh")
+
+
+# (filter_channels, last_op) per head
+HEAD_SPECS = {
+    "PIFuNetGMLP": ((257, 1024, 512, 256, 128, 1), "sigmoid"),
+    "PIFuNetCMLP": ((513, 1024, 512, 256, 128, 3), "tanh"),
+}
+
+HEADS = {"PIFuNetGMLP": PIFuNetGMLP, "PIFuNetCMLP": PIFuNetCMLP}

@@ -1,0 +1,140 @@
+"""MonoPortNet — the pixel-aligned implicit-function network (port of
+``monoport_tpu/models/monoport_net.py``, inference methods).
+
+Layouts follow the JAX package: images NHWC [B, H, W, C]; features
+[B, h, w, C]; points point-major [B, N, 3]; predictions [B, N, Res].
+Training (``get_loss``, per-stage supervision, the ``PIFuNetG``/``PIFuNetC``
+factories) and the anchored rotated query come with later slices (ROADMAP
+queue 1 items 7 and 11).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..config import CN
+from ..ops.projection import PROJECTIONS
+from ..ops.resize import interpolate_2d
+from ..ops.sampling import index, index_grid
+from .backbones import BACKBONES
+from .heads import HEADS
+from .normalizers import PIFuNomalizer
+
+FeatStages = Sequence[Sequence[torch.Tensor]]
+
+NORMALIZERS = {"PIFuNomalizer": PIFuNomalizer}
+
+
+def _in_image(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (u >= -1.0) & (u <= 1.0) & (v >= -1.0) & (v <= 1.0)
+
+
+class MonoPortNet(nn.Module):
+    """``head_channels`` overrides the published head widths (a small test
+    backbone gives a narrower head input); ``weights.build_net`` reads
+    them from the loaded params."""
+
+    def __init__(self, opt_net, head_channels: Optional[Sequence[int]] = None):
+        super().__init__()
+        opt = CN(opt_net)
+        if opt.projection not in ("orthogonal", "perspective"):
+            raise ValueError(opt.projection)
+        self.opt_net = opt
+        self.image_filter = BACKBONES[opt.backbone.IMF](opt.backbone)
+        self.surface_classifier = HEADS[opt.head.IMF](
+            opt.head, filter_channels=head_channels)
+        self.normalizer = NORMALIZERS[opt.normalizer.IMF](opt.normalizer)
+        self.projection = PROJECTIONS[opt.projection]
+
+    # -- feature extraction ------------------------------------------------
+    def filter(self, images: torch.Tensor,
+               feat_prior: Optional[torch.Tensor] = None) -> FeatStages:
+        feats_stages = self.image_filter(images)
+        if feat_prior is not None:  # netC: concat the geometry prior
+            h, w = feats_stages[0][0].shape[1:3]
+            feat_prior = interpolate_2d(feat_prior, (h, w), "nearest")
+            feats_stages = [[torch.cat([feat_prior, f], dim=-1) for f in fs]
+                            for fs in feats_stages]
+        return feats_stages
+
+    # -- per-point query ---------------------------------------------------
+    def query(self, feats_stages: FeatStages, points: torch.Tensor,
+              calibs: Optional[torch.Tensor] = None,
+              transforms: Optional[torch.Tensor] = None,
+              head_fn=None) -> list[torch.Tensor]:
+        """Eval-mode query at [B, N, 3] world points -> [[B, N, Res]]."""
+        xyz = points if calibs is None else self.projection(
+            points, calibs, transforms)
+        xy, z = xyz[..., :2], xyz[..., 2:3]
+        in_img = _in_image(xy[..., 0], xy[..., 1])
+        feats = feats_stages[-1]
+        z_feat = self.normalizer(z).to(feats[0].dtype)
+        x = torch.cat([index(f, xy) for f in feats] + [z_feat], dim=-1)
+        pred = head_fn(x) if head_fn is not None else self.surface_classifier(x)
+        return [in_img[..., None].to(pred.dtype) * pred]
+
+    # -- ray-structured query ----------------------------------------------
+    def query_taps(self, feats_stages: FeatStages, xy_world: torch.Tensor,
+                   z_world: torch.Tensor,
+                   calibs: Optional[torch.Tensor] = None,
+                   transforms: Optional[torch.Tensor] = None,
+                   head_taps_fn=None) -> torch.Tensor:
+        """T z-taps per ray: [B,R,2] xy + [B,R,T] z -> [B, R, T, Res].
+        Valid only for calibs whose image-plane rows have no z term."""
+        feats = feats_stages[-1]
+        base = torch.cat([xy_world, z_world[..., :1]], dim=-1)
+        xyz = (self.projection(base, calibs, transforms)
+               if calibs is not None else base)
+        xy = xyz[..., :2]
+        in_img = _in_image(xy[..., 0], xy[..., 1])
+        zz = (calibs[:, 2, 2] if calibs is not None
+              else torch.ones(xy.shape[0], dtype=xy.dtype, device=xy.device))
+        zc = xyz[..., 2:] + zz[:, None, None] * (z_world - z_world[..., :1])
+        z_feat = self.normalizer(zc)                           # [B, R, T]
+        feat = torch.cat([index(f, xy) for f in feats], dim=-1)
+        pred = self._head_taps(feat, z_feat.to(feat.dtype), head_taps_fn)
+        return in_img[..., None, None].to(pred.dtype) * pred
+
+    # -- grid-structured query (frontal fast path) -------------------------
+    def query_taps_grid(self, feats_stages: FeatStages,
+                        x_world: torch.Tensor, y_world: torch.Tensor,
+                        z_world: torch.Tensor,
+                        calibs: Optional[torch.Tensor] = None,
+                        head_taps_fn=None) -> torch.Tensor:
+        """Outer-product ray lattice x_world [B,Nu] x y_world [B,Nv] with
+        z_world [B,Nu,Nv,T] -> [B, Nu, Nv, T, Res]. Valid only when the
+        calib's image rows are diagonal and z-free (engine._calib_grid_ok)."""
+        feats = feats_stages[-1]
+        if calibs is not None:
+            c = calibs
+            u = c[:, 0, 0, None] * x_world + c[:, 0, 3, None]
+            v = c[:, 1, 1, None] * y_world + c[:, 1, 3, None]
+            zc = (c[:, 2, 0, None, None, None] * x_world[:, :, None, None]
+                  + c[:, 2, 1, None, None, None] * y_world[:, None, :, None]
+                  + c[:, 2, 2, None, None, None] * z_world
+                  + c[:, 2, 3, None, None, None])
+        else:
+            u, v, zc = x_world, y_world, z_world
+        in_img = _in_image(u[:, :, None], v[:, None, :])
+        z_feat = self.normalizer(zc)                           # [B,Nu,Nv,T]
+        feat = torch.cat([index_grid(f, u, v) for f in feats], dim=-1)
+        b, nu, nv, c_f = feat.shape
+        t = z_feat.shape[-1]
+        feat = feat.reshape(b, nu * nv, c_f)
+        zf = z_feat.reshape(b, nu * nv, t).to(feat.dtype)
+        pred = self._head_taps(feat, zf, head_taps_fn)
+        pred = pred.reshape(b, nu, nv, t, -1)
+        return in_img[..., None, None].to(pred.dtype) * pred
+
+    def _head_taps(self, feat, z_feat, head_taps_fn):
+        if head_taps_fn is not None:
+            return head_taps_fn(feat, z_feat)
+        # through the plain head: expand taps into the point axis
+        b, r, t = z_feat.shape
+        x = torch.cat([feat[:, :, None].expand(b, r, t, feat.shape[-1]),
+                       z_feat[..., None]], dim=-1)
+        return self.surface_classifier(x.reshape(b, r * t, -1)).reshape(
+            b, r, t, -1)

@@ -1,0 +1,7 @@
+from .projection import PROJECTIONS, orthogonal, perspective
+from .resize import avg_pool_2d, interpolate_2d, resize_axis, upsample2x_bicubic
+from .sampling import bilinear_rows, grid_sample_2d, index, index_grid
+
+__all__ = ["PROJECTIONS", "orthogonal", "perspective", "avg_pool_2d",
+           "interpolate_2d", "resize_axis", "upsample2x_bicubic",
+           "bilinear_rows", "grid_sample_2d", "index", "index_grid"]

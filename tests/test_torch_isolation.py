@@ -1,0 +1,31 @@
+"""PyTorch port, isolation: every module of monoport_tpu_torch and
+chip_smoke.py import without pulling in jax or monoport_tpu (checked in a
+fresh interpreter, since this test process has both loaded)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
+
+PROBE = r"""
+import importlib, pkgutil, sys
+import monoport_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(monoport_tpu_torch.__path__,
+                                              "monoport_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "monoport_tpu"))
+print(len(mods), bad)
+assert len(mods) >= 20, mods
+assert not bad, bad
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
