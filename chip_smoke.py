@@ -6,16 +6,26 @@ Needs one CUDA card and the repository checkout around this file; exits
 non-zero, printing no result, without either. Phases (one JSON line each):
 
 1. device: the card's name and power limit (nvidia-smi) and versions;
-2. build: compiles the frame's kernel from the checkout's source;
-3. kernel: each kernel against its plain twin on the card, at the shapes
-   the frame gives it, in bf16 and f32, with times (CUDA events) and the
-   bound (the larger of FLOPs over the card's peak and bytes over its
-   memory rate, H100 SXM data-sheet peaks);
+2. build: compiles every kernel source of the checkout, one compiler a
+   source, all started together, each timed;
+3. kernel: each kernel against its plain version on the card, at the
+   shapes the frames give it, in bf16 and f32, with times (CUDA events)
+   and the bound (the larger of operations over the card's peak for their
+   type and bytes over its memory rate, H100 SXM data-sheet peaks);
 4. frame: the committed netG + netC at full width through ReconEngine at
-   the real-time operating point, bf16, a few frames timed; the launch
-   counts are zeroed just before and read just after, and must be exactly
-   4 ray-MLP launches a frame; the last bf16 frame and then one f32 frame
-   are held to the JAX golden (f32) at ``frame_check``'s limits.
+   the real-time operating point, bf16, a few frontal frames timed; the
+   launch counts are zeroed just before and read just after, and must be
+   exactly 4 ray-MLP launches a frame and no other; no stream sync inside
+   a frame; the profile; the last bf16 frame and then one f32 frame are
+   held to the JAX golden (f32) at ``frame_check``'s limits;
+5. rotated frame: the same engines on the orbit camera's calib
+   (``frame_check.rotated_calib``): the counts zeroed and read again and
+   held to what the pose's anchor plan implies (the per-point MLP once
+   for the march and once for each per-point refine level, the anchored
+   MLP once for each anchored level, the ray MLP never), no stream sync,
+   a frame with a ``compact_hint`` held to the plain frame where nothing
+   dropped, the profile, and the bf16 and f32 frames held to the rotated
+   JAX golden.
 
 Then the kernels line, the card line, and last the result line. Any failed
 check raises, and the script exits non-zero.
@@ -31,7 +41,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join("monoport_tpu_torch", "csrc", "fused_ray_mlp.cu")
+CSRC = os.path.join("monoport_tpu_torch", "csrc")
+F32_FMA_PEAK = 67e12
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 without them,
 # HBM3 bandwidth
@@ -71,68 +82,126 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ray_mlp_work(head, rays: int, taps: int, dtype: str):
-    """(FLOPs, bytes) the ray MLP must do for rays x taps at the head's
-    unpadded widths: W_f once per ray, the hidden products per tap."""
+def _head_dims(head):
     layers = head.layers()
-    c_f = layers[0].weight.shape[1] - 1
     outs = [lin.weight.shape[0] for lin in layers]
-    mac_ray = c_f * sum(outs)
+    return layers[0].weight.shape[1], outs, sum(
+        lin.weight.numel() for lin in layers)
+
+
+def ray_mlp_work(head, rays: int, taps: int, dtype: str, anchors: int = 1,
+                 mixed: bool = False):
+    """(seconds of operations at the card's peaks, bytes) the ray MLP
+    (``anchors`` = 1) or the anchored MLP (``mixed``) must do for rays x
+    taps at the head's unpadded widths: W_f once per ray and anchor, the
+    hidden products per tap, and the K-term hat mix per tap and column as
+    f32 multiply-adds."""
+    c_in, outs, n_params = _head_dims(head)
+    c_f = c_in - 1
+    mac_ray = anchors * c_f * sum(outs)
     mac_tap = sum(a * b for a, b in zip(outs[:-1], outs[1:]))
     flops = 2.0 * (rays * mac_ray + rays * taps * mac_tap)
+    mix = 2.0 * rays * taps * anchors * sum(outs) if mixed else 0.0
     op = 2 if dtype == "bf16" else 4
-    n_params = sum(lin.weight.numel() for lin in layers)
-    nbytes = (rays * c_f * op + rays * taps * 4 + n_params * op
+    nbytes = (rays * anchors * c_f * op + rays * taps * 4
+              + (rays * taps * anchors * 4 if mixed else 0) + n_params * op
               + rays * taps * outs[-1] * 4)
-    return flops, nbytes
+    return flops + mix, flops / PEAK_FLOPS[dtype] + mix / F32_FMA_PEAK, nbytes
 
 
-def kernel_phase(netG, netC, tray):
-    """Kernel vs plain twin at the four shapes of the frame."""
+def point_mlp_work(head, points: int, dtype: str):
+    """The same for the per-point MLP: every layer's W_x x and W_h h per
+    point."""
+    c_in, outs, n_params = _head_dims(head)
+    mac = c_in * outs[0] + sum((a + c_in) * b
+                               for a, b in zip(outs[:-1], outs[1:]))
+    flops = 2.0 * points * mac
+    op = 2 if dtype == "bf16" else 4
+    nbytes = points * c_in * op + n_params * op + points * outs[-1] * 4
+    return flops, flops / PEAK_FLOPS[dtype], nbytes
+
+
+def hat_weights(rng, rays: int, taps: int, anchors: int):
+    """Real hat weights [1, rays, taps, anchors]: each tap's two
+    neighbouring anchors, summing to 1."""
+    import numpy as np
+
+    alpha = np.sort(rng.rand(1, rays, taps).astype(np.float32), axis=-1)
+    pos = alpha[..., None] * (anchors - 1) - np.arange(anchors,
+                                                       dtype=np.float32)
+    return np.maximum(0.0, 1.0 - np.abs(pos)).astype(np.float32)
+
+
+def kernel_phase(netG, netC, tray, tmlp):
+    """Every kernel vs its plain version at the shapes of the frames."""
     import numpy as np
     import torch
 
-    shapes = [("march", netG, 33 * 33, 33), ("refine65", netG, 65 * 65, 6),
-              ("refine257", netG, 192 * 192, 6), ("colour", netC, 192 * 192, 1)]
+    # (kernel, shape name, net, rays or points, taps, anchors)
+    shapes = [("fused_ray_mlp", "march", netG, 33 * 33, 33, 1),
+              ("fused_ray_mlp", "refine65", netG, 65 * 65, 6, 1),
+              ("fused_ray_mlp", "refine257", netG, 192 * 192, 6, 1),
+              ("fused_ray_mlp", "colour", netC, 192 * 192, 1, 1),
+              ("fused_mlp", "march", netG, 33 ** 3, 1, 1),
+              ("fused_mlp", "refine65_points", netG, 2304 * 6, 1, 1),
+              ("fused_mlp", "colour_points", netC, 18432, 1, 1),
+              ("fused_anchor_mlp", "refine65", netG, 2304, 6, 5),
+              ("fused_anchor_mlp", "refine257", netG, 18432, 6, 3)]
     rows = []
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        packs = {id(n): tray.pack_ray_mlp_params(n.surface_classifier,
-                                                 dtype=dtype, device="cuda")
-                 for n in (netG, netC)}
-        for i, (name, net, rays, taps) in enumerate(shapes):
-            p = packs[id(net)]
+        packs = {}
+        for n in (netG, netC):
+            packs[id(n), "ray"] = tray.pack_ray_mlp_params(
+                n.surface_classifier, dtype=dtype, device="cuda")
+            packs[id(n), "point"] = tmlp.pack_mlp_params(
+                n.surface_classifier, dtype=dtype, device="cuda")
+        for i, (kernel, name, net, rays, taps, k) in enumerate(shapes):
+            head = net.surface_classifier
             rng = np.random.RandomState(100 + i)
-            feat = torch.from_numpy(rng.randn(1, rays, p.c_f).astype(
-                np.float32)).cuda()
-            z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps))
-                                 .astype(np.float32)).cuda()
-            got = tray.apply_ray(p, feat, z)
-            want = tray.apply_ray_plain(p, feat, z)
+            cuda = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+            if kernel == "fused_mlp":
+                p = packs[id(net), "point"]
+                args = (cuda(rng.randn(1, rays, p.c_f)),)
+                fn, plain = tmlp.apply_mlp, tmlp.apply_mlp_plain
+                work = point_mlp_work(head, rays, dname)
+            else:
+                p = packs[id(net), "ray"]
+                z = cuda(rng.uniform(-1.3, 1.3, (1, rays, taps)))
+                if kernel == "fused_ray_mlp":
+                    args = (cuda(rng.randn(1, rays, p.c_f)), z)
+                    fn, plain = tray.apply_ray, tray.apply_ray_plain
+                    work = ray_mlp_work(head, rays, taps, dname)
+                else:
+                    args = (cuda(rng.randn(1, rays, k, p.c_f)),
+                            cuda(hat_weights(rng, rays, taps, k)), z)
+                    fn, plain = tray.apply_anchor, tray.apply_anchor_plain
+                    work = ray_mlp_work(head, rays, taps, dname, anchors=k,
+                                        mixed=True)
+            got = fn(p, *args)
+            want = plain(p, *args)
             torch.cuda.synchronize()
             err = (got - want).abs()
             tol = TOL[dname]
             ok = bool(torch.all(err <= tol["atol"] + tol["rtol"]
                                 * want.abs()).item()
                       and torch.isfinite(got).all().item())
-            flops, nbytes = ray_mlp_work(net.surface_classifier, rays, taps,
-                                         dname)
-            t_flop, t_byte = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+            flops, t_ops, nbytes = work
+            t_byte = nbytes / PEAK_BYTES
             reps = 20 if dname == "bf16" else 5
-            row = {"phase": "kernel", "kernel": "fused_ray_mlp",
-                   "shape": name, "dtype": dname, "rays": rays, "taps": taps,
-                   "c_f": p.c_f, "max_abs_err": float(err.max().item()),
+            row = {"phase": "kernel", "kernel": kernel, "shape": name,
+                   "dtype": dname, "rays": rays, "taps": taps, "anchors": k,
+                   "c_in": p.c_f, "max_abs_err": float(err.max().item()),
                    "atol": tol["atol"], "rtol": tol["rtol"], "ok": ok,
-                   "ms": cuda_ms(lambda: tray.apply_ray(p, feat, z), reps),
-                   "plain_ms": cuda_ms(
-                       lambda: tray.apply_ray_plain(p, feat, z), reps),
+                   "ms": cuda_ms(lambda: fn(p, *args), reps),
+                   "plain_ms": cuda_ms(lambda: plain(p, *args), reps),
                    "gflop": flops / 1e9,
-                   "bound_ms": max(t_flop, t_byte) * 1e3,
-                   "bound_by": "operations" if t_flop >= t_byte else "bytes",
+                   "bound_ms": max(t_ops, t_byte) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_byte else "bytes",
                    "library_ms": None}
             emit(row)
             if not ok:
-                fail(f"fused_ray_mlp {name} {dname}: kernel disagrees with "
-                     f"its twin (max abs err {row['max_abs_err']})")
+                fail(f"{kernel} {name} {dname}: the kernel disagrees with "
+                     f"its plain version (max abs err {row['max_abs_err']})")
             rows.append(row)
     return rows
 
@@ -164,7 +233,7 @@ def find_syncs(fn) -> list[str]:
 
 
 def profile_phase(eng, image, calib, card: str, frame_ms: float,
-                  frames: int = 2) -> None:
+                  view: str, frames: int = 2) -> None:
     """Device time by kernel over a few bf16 frames (torch.profiler), and
     the device's idle share of the unprofiled median frame time."""
     import torch
@@ -183,7 +252,8 @@ def profile_phase(eng, image, calib, card: str, frame_ms: float,
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
-    emit({"phase": "profile", "dtype": "bf16", "frames": frames,
+    emit({"phase": "profile", "view": view, "dtype": "bf16",
+          "frames": frames,
           "wall_ms_per_frame": wall_ms, "device_ms_per_frame": busy,
           "device_idle_share": 1.0 - busy / frame_ms,
           "device_idle_share_profiled": 1.0 - busy / wall_ms,
@@ -192,69 +262,190 @@ def profile_phase(eng, image, calib, card: str, frame_ms: float,
                   for k in kernels[:20]], "card": card})
 
 
-def frame_phase(netG, netC, tray, card: str):
+FRAME_SHAPES = {"depth": (257, 257), "valid": (257, 257),
+                "render_norm": (256, 256, 3), "render_tex": (256, 256, 3),
+                "mask": (256, 256, 1)}
+
+
+def timed_frames(eng, image, calib, counters: dict, expect: dict,
+                 view: str, card: str):
+    """Warm up, check for stream syncs, then time FRAMES bf16 frames with
+    the launch counts zeroed just before and read just after; ``expect``
+    is the launches a frame of each kernel. -> (last output, median ms,
+    launches by kernel)."""
     import torch
 
-    from monoport_tpu_torch import frame_check
-    from monoport_tpu_torch.engine import ReconEngine
-
-    golden = frame_check.load_golden()
-    image = torch.from_numpy(golden["image"]).cuda()
-    calib = golden["calib"]
-
-    recon, cfg = frame_check.rtl_config(torch.bfloat16)
-    eng = ReconEngine(netG, netC, recon=recon, config=cfg)
     eng.frame(image, image, calib)                       # warm-up
     torch.cuda.synchronize()
-    if not find_syncs(lambda: torch.zeros(1, device="cuda").item()):
-        fail("the sync detector misses a known sync")
     syncs = find_syncs(lambda: eng.frame(image, image, calib))
     if syncs:
-        fail(f"a frame synchronised the stream at {syncs}")
+        fail(f"a {view} frame synchronised the stream at {syncs}")
     torch.cuda.synchronize()
-    tray.apply_ray.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     times = []
     for _ in range(FRAMES):
         t0 = time.perf_counter()
         out = eng.frame(image, image, calib)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = tray.apply_ray.launches
-    if launches != 4 * FRAMES:
-        fail(f"fused_ray_mlp launched {launches} times in {FRAMES} frames, "
-             f"expected {4 * FRAMES}")
-    shapes = {k: tuple(v.shape) for k, v in out.items()}
-    if shapes != {"depth": (257, 257), "valid": (257, 257),
-                  "render_norm": (256, 256, 3), "render_tex": (256, 256, 3),
-                  "mask": (256, 256, 1)}:
-        fail(f"frame output shapes {shapes}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: n * FRAMES for name, n in expect.items()}
+    if launches != want:
+        fail(f"{view} frames launched {launches} in {FRAMES} frames, "
+             f"expected {want}")
+    shapes = {k: tuple(v.shape) for k, v in out.items()
+              if k != "compact_dropped"}
+    if shapes != FRAME_SHAPES:
+        fail(f"{view} frame output shapes {shapes}")
     for k in ("depth", "render_norm", "render_tex"):
         if not torch.isfinite(out[k]).all():
-            fail(f"bf16 frame: non-finite {k}")
+            fail(f"bf16 {view} frame: non-finite {k}")
     med = statistics.median(times)
-    emit({"phase": "frame", "dtype": "bf16", "frames": FRAMES,
+    emit({"phase": "frame", "view": view, "dtype": "bf16", "frames": FRAMES,
           "frame_ms_median": med, "fps": 1e3 / med, "frame_ms": times,
-          "ray_mlp_launches": launches, "launches_per_frame": launches / FRAMES,
+          "launches": launches,
+          "launches_per_frame": {k: v / FRAMES for k, v in launches.items()},
           "host_syncs_per_frame": len(syncs), "card": card})
-    res16 = frame_check.compare_to_golden(out, golden,
-                                          frame_check.BF16_LIMITS)
-    emit({"phase": "golden", "dtype": "bf16", **res16,
-          "limits": frame_check.BF16_LIMITS._asdict(), "card": card})
-    profile_phase(eng, image, calib, card, med)
+    return out, med, launches
 
-    recon, cfg = frame_check.rtl_config(torch.float32)
-    eng32 = ReconEngine(netG, netC, recon=recon, config=cfg)
+
+def golden_phase(eng32, out16, image, golden, limits16, view: str,
+                 card: str):
+    """The last bf16 frame and one f32 frame against a JAX golden."""
+    import torch
+
+    from monoport_tpu_torch import frame_check
+
+    res16 = frame_check.compare_to_golden(out16, golden, limits16)
+    emit({"phase": "golden", "view": view, "dtype": "bf16", **res16,
+          "limits": limits16._asdict(), "card": card})
     t0 = time.perf_counter()
-    out32 = eng32.frame(image, image, calib)
+    out32 = eng32.frame(image, image, golden["calib"])
     torch.cuda.synchronize()
     ms32 = (time.perf_counter() - t0) * 1e3
     res = frame_check.compare_to_golden(out32, golden)
-    emit({"phase": "golden", "dtype": "f32", "frame_ms": ms32, **res,
-          "limits": frame_check.F32_LIMITS._asdict(), "card": card})
+    emit({"phase": "golden", "view": view, "dtype": "f32", "frame_ms": ms32,
+          **res, "limits": frame_check.F32_LIMITS._asdict(), "card": card})
     for dname, r in (("bf16", res16), ("f32", res)):
         if not r["ok"]:
-            fail(f"{dname} frame disagrees with the JAX golden: {r}")
-    return launches
+            fail(f"{dname} {view} frame disagrees with the JAX golden: {r}")
+    return out32
+
+
+def frame_phases(netG, netC, counters: dict, card: str) -> dict:
+    """The frontal and the rotated frame. -> launches by kernel, each
+    from the run of the path that launches it."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.engine import ReconEngine
+
+    golden = frame_check.load_golden()
+    rotated = frame_check.load_golden(frame_check.GOLDEN_ROTATED)
+    image = torch.from_numpy(golden["image"]).cuda()
+    if not np.array_equal(rotated["calib"], frame_check.rotated_calib()):
+        fail("the rotated golden was written for another pose")
+
+    recon, cfg = frame_check.rtl_config(torch.bfloat16)
+    eng = ReconEngine(netG, netC, recon=recon, config=cfg)
+    recon, cfg = frame_check.rtl_config(torch.float32)
+    eng32 = ReconEngine(netG, netC, recon=recon, config=cfg)
+    if not find_syncs(lambda: torch.zeros(1, device="cuda").item()):
+        fail("the sync detector misses a known sync")
+
+    # frontal: 4 ray-MLP launches a frame and no other
+    out, med, launches = timed_frames(
+        eng, image, golden["calib"], counters,
+        {"fused_ray_mlp": 4, "fused_mlp": 0, "fused_anchor_mlp": 0},
+        "frontal", card)
+    total = {"fused_ray_mlp": launches["fused_ray_mlp"]}
+    profile_phase(eng, image, golden["calib"], card, med, "frontal")
+    golden_phase(eng32, out, image, golden, frame_check.BF16_LIMITS,
+                 "frontal", card)
+
+    # rotated: the counts follow the pose's anchor plan
+    calib = rotated["calib"]
+    plan = eng._rot_anchor_plan(calib, image.shape[1])
+    if [k or 0 for k in plan] != rotated["anchor_plan"].tolist():
+        fail(f"anchor plan {plan} != the golden's {rotated['anchor_plan']}")
+    expect = {"fused_ray_mlp": 0,
+              "fused_mlp": 1 + sum(1 for k in plan if not k),
+              "fused_anchor_mlp": sum(1 for k in plan if k)}
+    out, med, launches = timed_frames(eng, image, calib, counters, expect,
+                                      "rotated", card)
+    total.update({k: launches[k] for k in ("fused_mlp", "fused_anchor_mlp")})
+    dropped = out["compact_dropped"].tolist()
+    emit({"phase": "rotated", "anchor_plan": [k or 0 for k in plan],
+          "launches_per_frame_expected": expect, "compact_dropped": dropped,
+          "compact_report": eng.compact_report(out)})
+
+    # a smaller budget from the measured valid fraction: the same frame
+    # where nothing dropped (the per-point colour head is a library GEMM,
+    # whose sums may split otherwise at another batch: held to 1e-5)
+    hint = eng.compact_hint_from_valid(float(out["valid"].float().mean()))
+    hinted = eng.frame(image, image, calib, compact_hint=hint)
+    torch.cuda.synchronize()
+    dropped_h = hinted["compact_dropped"].tolist()
+    same = {k: bool(torch.equal(hinted[k], out[k])) for k in FRAME_SHAPES}
+    tex_diff = float((hinted["render_tex"] - out["render_tex"]).abs().max())
+    emit({"phase": "compact_hint", "hint": hint, "compact_dropped": dropped_h,
+          "bit_identical": same, "render_tex_max_diff": tex_diff})
+    if not any(dropped) and not any(dropped_h):
+        if not all(same[k] for k in ("depth", "valid", "render_norm")):
+            fail(f"the hinted frame's geometry differs: {same}")
+        if tex_diff > 1e-5:
+            fail(f"the hinted frame's texture differs by {tex_diff}")
+    profile_phase(eng, image, calib, card, med, "rotated")
+    out32 = golden_phase(eng32, out, image, rotated,
+                         frame_check.BF16_ROTATED_LIMITS, "rotated", card)
+    dropped32 = out32["compact_dropped"].tolist()
+    if dropped32 != rotated["compact_dropped"].tolist():
+        fail(f"f32 rotated frame dropped {dropped32}, the golden "
+             f"{rotated['compact_dropped'].tolist()}")
+    return total
+
+
+KERNELS = [
+    # name, source, the TPU kernel it replaces, its shapes on the main path
+    ("fused_ray_mlp", "fused_ray_mlp.cu",
+     "monoport_tpu/ops/pallas/fused_ray_mlp.py:109",
+     ("march", "refine65", "refine257", "colour")),
+    ("fused_mlp", "fused_mlp.cu",
+     "monoport_tpu/ops/pallas/fused_mlp.py:78", ("march",)),
+    ("fused_anchor_mlp", "fused_ray_mlp.cu",
+     "monoport_tpu/ops/pallas/fused_ray_mlp.py:181",
+     ("refine65", "refine257")),
+]
+
+
+def kernels_line(rows: list, launches: dict) -> dict:
+    """One entry a kernel: the bf16 launches of its frame summed (ms,
+    plain_ms, bound_ms a frame), the largest error among them, and every
+    measured shape under ``shapes``."""
+    entries = []
+    for name, source, replaces, on_path in KERNELS:
+        mine = [r for r in rows if r["kernel"] == name]
+        path = [r for r in mine if r["dtype"] == "bf16"
+                and r["shape"] in on_path]
+        if launches[name] < 1:
+            fail(f"{name} was not launched on its frame's path")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": os.path.join(CSRC, source), "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in path),
+            "ms": sum(r["ms"] for r in path),
+            "plain_ms": sum(r["plain_ms"] for r in path),
+            "bound_ms": sum(r["bound_ms"] for r in path),
+            "bound_by": "operations"
+            if all(r["bound_by"] == "operations" for r in path) else "bytes",
+            "library_ms": None,
+            "shapes": {f"{r['shape']}/{r['dtype']}": {
+                k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                  "max_abs_err")} for r in mine}})
+    return {"kernels": entries}
 
 
 def main() -> int:
@@ -262,7 +453,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
-    if not os.path.exists(os.path.join(ROOT, SOURCE)):
+    if not os.path.isdir(os.path.join(ROOT, CSRC)):
         fail("the repository checkout is not beside this script")
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -274,35 +465,27 @@ def main() -> int:
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
 
+    from monoport_tpu_torch.ops.cuda import build
+    from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
     from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
     from monoport_tpu_torch.weights import load_default_networks
 
     t0 = time.perf_counter()
-    lib = tray.build()
+    seconds: dict = {}
+    libs = build.build_all(seconds)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib, ROOT)})
+          "sources": {os.path.join(CSRC, f"{name}.cu"): {
+              "seconds": seconds[name],
+              "library": os.path.relpath(path, ROOT)}
+              for name, path in libs.items()}})
 
     netG, netC = load_default_networks()
-    rows = kernel_phase(netG, netC, tray)
-    launches = frame_phase(netG, netC, tray, card)
+    rows = kernel_phase(netG, netC, tray, tmlp)
+    counters = {"fused_ray_mlp": tray.apply_ray, "fused_mlp": tmlp.apply_mlp,
+                "fused_anchor_mlp": tray.apply_anchor}
+    launches = frame_phases(netG, netC, counters, card)
 
-    path = [r for r in rows if r["dtype"] == "bf16"]
-    emit({"kernels": [{
-        "name": "fused_ray_mlp", "route": "cuda",
-        "source": SOURCE,
-        "replaces": "monoport_tpu/ops/pallas/fused_ray_mlp.py:109",
-        "launches": launches,
-        # per frame: the four bf16 launches of the frame, summed
-        "max_abs_err": max(r["max_abs_err"] for r in path),
-        "ms": sum(r["ms"] for r in path),
-        "plain_ms": sum(r["plain_ms"] for r in path),
-        "bound_ms": sum(r["bound_ms"] for r in path),
-        "bound_by": "operations"
-        if all(r["bound_by"] == "operations" for r in path) else "bytes",
-        "library_ms": None,
-        "shapes": {f"{r['shape']}/{r['dtype']}": {
-            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
-            for r in rows}}]})
+    emit(kernels_line(rows, launches))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,35 @@
-"""ReconEngine — the frontal real-time frame on the card (port of
-``monoport_tpu/engine.py``, frontal grid path).
+"""ReconEngine — the real-time frames on the card, frontal and rotated
+(port of ``monoport_tpu/engine.py``, march-pyramid paths).
 
 One frame: netG ``HGFilter`` over the image, the volume-free
 ``ray_pyramid`` (dense march, refines through the march levels and the
 windowed fine pass), normal shading, netC ``ResnetFilter`` with netG's last
-feature map as its prior, the windowed grid colour query, and the display
-resize. Every occupancy and colour query goes through the separable grid
-sampling and the fused ray MLP (``ops/cuda/fused_ray_mlp.py``): 4 kernel
-launches a frame at the real-time operating point.
+feature map as its prior, the colour query, and the display resize.
 
 The path is chosen on the host from the numpy calib, as the JAX engine
-does, so no per-frame device sync appears. Calibs that do not pass
-``_calib_grid_ok`` (rotated views, in-plane rotations), ``mode='dense'``,
-``frames()`` and meshes belong to later slices and raise.
+does, so no per-frame device sync appears:
+
+* frontal calibs (diagonal, z-free image rows): separable grid sampling
+  and the fused ray MLP for every query, 4 launches a frame
+  (``ops/cuda/fused_ray_mlp.apply_ray``);
+* in-plane rotations (z-free rows, not diagonal): the march and the
+  refines gather once per ray and run the same ray MLP; the colour query
+  runs per point through the plain head;
+* rotated (free-viewpoint) calibs, every calib of a perspective net, and
+  ``use_ray_query=False``: the march runs the exact per-point query
+  through the per-point MLP kernel (``ops/cuda/fused_mlp.apply_mlp``);
+  each refine level queries only its coarse-valid rays (compaction, a
+  static budget) through the anchored ray MLP
+  (``fused_ray_mlp.apply_anchor``) with the anchor count the host-side
+  plan gives that level, or exact per-point where the plan gives none;
+  the per-point colour query rides the last level's compaction.
+
+``mode='dense'``, ``frames()``, meshes and ``rotated.march=False`` (the
+hierarchy fallback) belong to a later slice and raise.
 
 Dtype policy (JAX ``_cast`` / ``_feats_f32``): the backbones run in the
 compute dtype, their feature maps are upcast to f32 before the queries,
-and the MLP runs in the compute dtype inside the kernel with f32
+and the MLPs run in the compute dtype inside the kernels with f32
 accumulation. The head operands are packed once, at construction. f32
 parity with the JAX package (which pins full f32 precision) needs TF32
 off on the card: ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -27,7 +40,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+import math
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -35,40 +49,110 @@ import torch
 from .config import CN
 from .models import MonoPortNet
 from .ops.constants import upload_async
-from .ops.cuda.fused_ray_mlp import apply_ray, pack_ray_mlp_params
-from .recon.depth_peel import SurfaceMaps, shade_normal, visualize
+from .ops.cuda.fused_mlp import apply_mlp, pack_mlp_params
+from .ops.cuda.fused_ray_mlp import (apply_anchor, apply_ray,
+                                     pack_ray_mlp_params)
+from .recon.depth_peel import SurfaceMaps, colorize, shade_normal, visualize
 from .recon.hierarchy import HierarchicalRecon
-from .recon.ray_refine import _axis_window, _f32, _sample_grid, ray_pyramid
+from .recon.ray_refine import (_axis_window, _compact_rays, _f32,
+                               _sample_grid, _valid_indices, ray_pyramid)
 from .weights import resolve_device
 
-ROTATED_TODO = ("rotated-view calibs are not ported yet (ROADMAP queue 1 "
-                "item 7: rotated free-viewpoint slice)")
-DENSE_TODO = ("the dense/hierarchy path, frames() and meshes are not ported "
+DENSE_TODO = ("mode='dense', the hierarchy fallback of rotated frames "
+              "(rotated.march=False), frames() and meshes are not ported "
               "yet (ROADMAP queue 1 item 8)")
+
+# Adaptive rotated-compaction budget rungs: frame(compact_hint=...) snaps
+# the hint up to one of these, so a bounded set of shapes ever runs.
+COMPACT_LADDER = (0.25, 0.375, 0.5, 0.625)
+
+
+def _snap_budget(hint: float, ceiling: float) -> float:
+    """Smallest COMPACT_LADDER rung >= hint, capped at the constructor
+    ceiling (a capped rung may drop rays; telemetry counts them)."""
+    for rung in COMPACT_LADDER:
+        if rung >= hint:
+            return min(rung, ceiling)
+    return ceiling
 
 
 @dataclasses.dataclass(frozen=True)
 class RayCfg:
     """Reconstruction-path shape (see the JAX ``RayCfg``). Only
-    ``mode='ray'`` with ``march_levels`` is ported."""
+    ``mode='ray'`` with ``march_levels`` is ported.
+
+    use_ray_query: allow the ray-structured queries (shared gather and
+    skip projections per ray). They are valid only for calibs with z-free
+    image-plane rows; ``frame()`` checks per call. False sends every
+    frame down the per-point / anchored path."""
     mode: str = "dense"
     fine_res: int = 257
     taps: int = 6
     window: Optional[int] = None
     march_levels: Optional[tuple] = None
+    use_ray_query: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class RotatedCfg:
+    """Rotated-view (orbit camera / perspective net) path.
+
+    march: rotated calibs take the march pyramid through exact per-point
+      queries (the march axis is the view ray for any calib). False asks
+      for the hierarchy fallback, which is not ported: such a frame raises.
+    compact: query only the coarse-valid rays of each refine level and
+      only the valid texture pixels, padded to this fraction of the
+      lattice; None = dense. This is the ceiling of the adaptive per-frame
+      budget (``frame(compact_hint=...)`` snaps up COMPACT_LADDER).
+      Overflow degrades to the coarse silhouette and is counted in
+      ``frame()['compact_dropped']``.
+    anchors: refine levels run the anchored ray query (K feature gathers
+      per ray + a per-tap lerp). 'auto' = per-level K from the calib
+      (``_rot_anchor_plan``); an int pins K; None/0 = exact per-point
+      refines.
+    anchor_texels: the 'auto' planner's tolerance: the most feature texels
+      a lerp segment may span.
+    """
+    march: bool = True
+    compact: Optional[float] = 0.5
+    anchors: Any = "auto"
+    anchor_texels: float = 1.5
+
+
+@dataclasses.dataclass(frozen=True)
+class TextureCfg:
+    """netC texture-stage knobs (rotated per-point path).
+
+    bf16: do not upcast netC's feature maps to f32 for the per-point
+      colour query. As in the JAX package it changes nothing today: the
+      f32 geometry prior concatenated into those maps has promoted them to
+      f32 already.
+    reuse_compact: the per-point colour query rides the last refine
+      level's compaction (window, gathered rays, refined depths) instead
+      of deriving window, valid set and indices again from the maps.
+    stride: query colours on a dense (window/stride)^2 lattice instead of
+      the compacted valid set, and upsample them bilinearly back to the
+      ray lattice; geometry is untouched. 1 = exact.
+    pallas_head: run the per-point colour MLP through the per-point MLP
+      kernel, as the occupancy queries do (the flag keeps the JAX
+      package's name). Default False: the plain head.
+    """
+    bf16: bool = False
+    reuse_compact: bool = True
+    stride: int = 1
+    pallas_head: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineCfg:
     """render_size: output canvas; compute_dtype: backbone/MLP operand
-    dtype (the feature maps feeding the queries are upcast to f32). The
-    JAX ``RotatedCfg`` / ``TextureCfg`` knobs and ``use_ray_query`` come
-    with the rotated slice (ROADMAP queue 1 item 7), with the code that
-    reads them."""
+    dtype (the feature maps feeding the queries are upcast to f32)."""
     render_size: int = 256
     direction: str = "front"
     compute_dtype: torch.dtype = torch.float32
     ray: RayCfg = RayCfg()
+    rotated: RotatedCfg = RotatedCfg()
+    texture: TextureCfg = TextureCfg()
 
 
 class ReconEngine:
@@ -80,7 +164,8 @@ class ReconEngine:
       recon: HierarchicalRecon (b_min / b_max / balance_value are read).
       config: EngineCfg.
       device: ``None`` = ``cuda`` (raises when CUDA is absent); pass
-        ``"cpu"`` to run on the CPU, where the ray MLP takes its plain twin.
+        ``"cpu"`` to run on the CPU, where the MLP kernels take their
+        plain versions.
     """
 
     def __init__(self, netG: MonoPortNet, netC: Optional[MonoPortNet] = None,
@@ -92,7 +177,7 @@ class ReconEngine:
         if cfg.ray.mode != "ray" or not cfg.ray.march_levels:
             raise NotImplementedError(DENSE_TODO)
         if cfg.direction != "front":
-            raise NotImplementedError(ROTATED_TODO)
+            raise ValueError("march_levels requires the frontal viewer")
         self.recon = recon or HierarchicalRecon()
         self.compute_dtype = cfg.compute_dtype
         self.render_size = cfg.render_size
@@ -103,9 +188,19 @@ class ReconEngine:
         # the compute-dtype copies of the nets (JAX ``_cast`` of params)
         self.netG = self._cast(netG)
         self.netC = self._cast(netC) if netC is not None else None
-        self.head_g = self._ray_head(self.netG)
-        self.head_c = (self._ray_head(self.netC)
-                       if self.netC is not None else None)
+        # head operands, packed once: the ray and anchored kernels share
+        # one packing, the per-point kernel has its own
+        dt, dev = self.compute_dtype, self.device
+        ray_g = pack_ray_mlp_params(self.netG.surface_classifier, dt, dev)
+        point_g = pack_mlp_params(self.netG.surface_classifier, dt, dev)
+        self.head_g = lambda feat, z: apply_ray(ray_g, feat, z)
+        self.anchor_g = lambda feat_k, w, z: apply_anchor(ray_g, feat_k, w, z)
+        self.point_g = lambda x: apply_mlp(point_g, x)
+        self.head_c = self.point_c = None
+        if self.netC is not None:
+            ray_c = pack_ray_mlp_params(self.netC.surface_classifier, dt, dev)
+            self.head_c = lambda feat, z: apply_ray(ray_c, feat, z)
+            self.point_c = self._point_color_head()
 
     def _cast(self, net: MonoPortNet) -> MonoPortNet:
         """The net in the compute dtype on the engine's device (a copy
@@ -114,9 +209,29 @@ class ReconEngine:
             else net
         return net.to(device=self.device, dtype=self.compute_dtype).eval()
 
+    def _point_color_head(self):
+        """The head of the per-point colour query (``query(head_fn=...)``;
+        None = the net's own head).
+
+        The JAX engine applies the plain head with compute-dtype params to
+        f32 feature maps, which promotes to f32 products on the rounded
+        weights: here that is an f32 copy of the compute-dtype head.
+        ``texture.pallas_head`` takes the per-point MLP kernel instead."""
+        head = self.netC.surface_classifier
+        if self.config.texture.pallas_head:
+            packed = pack_mlp_params(head, self.compute_dtype, self.device)
+            return lambda x: apply_mlp(packed, x)
+        if self.compute_dtype == torch.float32:
+            return None
+        return copy.deepcopy(head).float()
+
     def _calib_taps_ok(self, calibs) -> bool:
         """True iff every calib has z-free image-plane rows (host check on
-        the numpy calib) and the net can build the ray head."""
+        the numpy calib), the net is orthographic and the ray-structured
+        queries are allowed. A perspective net never qualifies: its
+        z-divide moves (u, v) along every ray."""
+        if not self.config.ray.use_ray_query:
+            return False
         if CN(self.netG.opt_net).projection != "orthogonal":
             return False
         c = np.asarray(calibs)
@@ -131,17 +246,94 @@ class ReconEngine:
         return bool(max(np.abs(c[..., 0, 1]).max(),
                         np.abs(c[..., 1, 0]).max()) < 1e-6)
 
-    def _ray_head(self, net: MonoPortNet):
-        """The fused ray MLP over this net's head, packed once."""
-        packed = pack_ray_mlp_params(net.surface_classifier,
-                                     dtype=self.compute_dtype,
-                                     device=self.device)
-        return lambda feat, z: apply_ray(packed, feat, z)
-
     def _feats_f32(self, feats):
         if self.compute_dtype == torch.float32:
             return feats
         return [[f.float() for f in fs] for fs in feats]
+
+    def _refine_pairs(self) -> list:
+        """(rc, rf) resolution pairs of the refine levels a rotated frame
+        runs, in order: the march pyramid's chain."""
+        lv = list(self.march_levels) + [self.fine_res]
+        return list(zip(lv[:-1], lv[1:]))
+
+    def _rot_anchor_plan(self, calibs, image_h: int) -> tuple:
+        """Host-side anchor count per refine level for a rotated calib (or
+        any calib of a perspective net).
+
+        A refine level's taps span (2*pad+1) fine voxels along recon z;
+        under the net's projection they sweep an image-space chord whose
+        length in feature texels is measured numerically: the span's end
+        points go through the projection (affine or z-divide) for a grid
+        of probe rays across the volume, and the worst chord counts. K
+        anchors split the chord into K-1 lerp segments; K is the smallest
+        count that keeps a segment under ``anchor_texels`` texels. A level
+        that would need K >= taps gains nothing and runs exact per-point
+        (None). An int ``anchors`` pins every level."""
+        rot = self.config.rotated
+        if not rot.anchors:
+            return ()
+        pairs = self._refine_pairs()
+        if rot.anchors != "auto":
+            return tuple(int(rot.anchors) for _ in pairs)
+        persp = CN(self.netG.opt_net).projection == "perspective"
+        c = np.asarray(calibs, np.float64).reshape(-1, 4, 4)[0]
+        feat_hw = max(image_h // 4, 2)          # stride-4 backbones
+        b_min = np.asarray(self.recon.b_min, np.float64)
+        b_max = np.asarray(self.recon.b_max, np.float64)
+        # probe rays: a 5x5 (x, y) grid x a few z starts across the volume
+        ax = np.linspace(0.0, 1.0, 5)
+        gx, gy = np.meshgrid(ax, ax, indexing="ij")
+        xy = np.stack([b_min[0] + gx.ravel() * (b_max[0] - b_min[0]),
+                       b_min[1] + gy.ravel() * (b_max[1] - b_min[1])], -1)
+
+        def uv(pts):
+            homo = pts @ c[:3, :3].T + c[:3, 3]
+            if persp:
+                return homo[..., :2] / np.maximum(
+                    np.abs(homo[..., 2:3]), 1e-9) * np.sign(homo[..., 2:3])
+            return homo[..., :2]
+
+        z_range = float(b_max[2] - b_min[2])
+        plan = []
+        for rc, rf in pairs:
+            scale = (rf - 1) / (rc - 1)
+            pad = math.ceil(scale) + 1
+            world_span = (2 * pad + 1) * z_range / (rf - 1)
+            span = 0.0
+            for z0f in (0.0, 0.5, 1.0 - world_span / z_range):
+                z0 = b_min[2] + z0f * z_range
+                p0 = np.concatenate([xy, np.full((len(xy), 1), z0)], -1)
+                p1 = p0.copy()
+                p1[:, 2] += world_span
+                span = max(span, float(
+                    np.linalg.norm(uv(p1) - uv(p0), axis=-1).max()))
+            texels = span * 0.5 * (feat_hw - 1)
+            k = max(2, math.ceil(texels / rot.anchor_texels) + 1)
+            plan.append(k if k < self.ray_taps else None)
+        return tuple(plan)
+
+    # -- query closures over one frame's features and calib ----------------
+    def _query_occ_fn(self, feats, calib):
+        def query_occ(pts):
+            return self.netG.query(feats, pts, calib, head_fn=self.point_g)[0]
+        return query_occ
+
+    def _query_taps_fn(self, feats, calib):
+        def query_taps(xy, z_taps):
+            return self.netG.query_taps(feats, xy, z_taps, calib,
+                                        head_taps_fn=self.head_g)[..., 0]
+        return query_taps
+
+    def _query_anchored_fn(self, feats, calib, anchors: int):
+        """Anchored ray occupancy query of a rotated refine level (the
+        [B,R,2] xy + [B,R,T] z -> [B,R,T] contract of ``_query_taps_fn``,
+        valid for any affine calib and for perspective nets)."""
+        def query_anchored(xy, z_taps):
+            return self.netG.query_taps_anchored(
+                feats, xy, z_taps, calib, anchors=anchors,
+                head_anchor_fn=self.anchor_g)[..., 0]
+        return query_anchored
 
     def _query_grid_fn(self, feats, calib):
         def query_grid(xw, yw, wz):
@@ -157,62 +349,200 @@ class ReconEngine:
                 head_taps_fn=self.head_c)[0, :, :, 0, :]
         return color_grid
 
+    def _query_color_fn(self, feats, calib):
+        def query_color(pts):
+            return self.netC.query(feats, pts, calib,
+                                   head_fn=self.point_c)[0].float()
+        return query_color
+
     def _texture_canvas(self, maps: SurfaceMaps, resolution: int,
-                        color_grid) -> torch.Tensor:
-        """Texture canvas through the grid colour query, on a window^2
-        lattice over the subject's bbox when a window is set (resampled
-        back: an exact gather at stride 1, bilinear colours beyond)."""
+                        color_grid=None, query_color=None,
+                        compact: Optional[float] = None,
+                        telemetry: Optional[list] = None,
+                        reuse: Optional[dict] = None) -> torch.Tensor:
+        """Texture canvas for both colour queries, on a window^2 lattice
+        over the subject's bbox when a window is set (resampled back: an
+        exact gather at stride 1, bilinear colours beyond).
+
+        ``color_grid`` (frontal frames): the separable grid query.
+        ``query_color`` (every other frame): the per-point query on the
+        same window lattice. ``compact``: per-point only; query just the
+        window pixels whose ray is valid, padded to this fraction of the
+        window lattice; the rest stay background white and are masked by
+        ``maps.valid`` anyway. ``reuse``: the last refine level's compact
+        state; the colour query runs at that level's gathered rays and
+        refined depths. World coordinates still step by 1/r here, not by
+        the refine's 1/(r-1). ``texture.stride`` > 1: a dense strided
+        lattice over the window span instead of the valid set."""
         r = resolution
         dev = maps.depth.device
         b_min = _f32(self.recon.b_min, dev)
         b_max = _f32(self.recon.b_max, dev)
         sr = (b_max - b_min) / r
         w = self.ray_window
+        stride = self.config.texture.stride
         fr = torch.arange(r, dtype=torch.float32, device=dev)
+
+        def finish(color):
+            color = color * 0.5 + 0.5
+            return torch.where(maps.valid[..., None], color,
+                               torch.ones_like(color))
+
+        def from_window(color_w, x0, sx, y0, sy, n):
+            u = torch.clamp((fr - x0) / sx, 0.0, n - 1)
+            v = torch.clamp((fr - y0) / sy, 0.0, n - 1)
+            return finish(torch.stack([_sample_grid(color_w[..., k], u, v)
+                                       for k in range(3)], dim=-1))
+
+        def lattice_points(xw, yw, zw):
+            h, ww = zw.shape
+            return torch.stack([xw[:, None].expand(h, ww),
+                                yw[None, :].expand(h, ww), zw],
+                               dim=-1).reshape(1, -1, 3)
+
         if w is None or w >= r:
-            color = color_grid(fr * sr[0] + b_min[0], fr * sr[1] + b_min[1],
-                               (float(r) - maps.depth) * sr[2] + b_min[2])
+            if color_grid is not None:
+                return finish(color_grid(
+                    fr * sr[0] + b_min[0], fr * sr[1] + b_min[1],
+                    (float(r) - maps.depth) * sr[2] + b_min[2]))
+            return colorize(maps, query_color, r, self.recon.b_min,
+                            self.recon.b_max)
+        if stride > 1 and query_color is not None:
+            # dense strided lattice: no valid resample, no index set, no
+            # scatter (and no telemetry row: it cannot drop pixels)
+            if reuse is not None:
+                w = reuse["w"]
+                x0, sx, y0, sy = (reuse[k] for k in ("x0", "sx", "y0", "sy"))
+            else:
+                x0, sx = _axis_window(maps.valid.any(dim=1), r, r, 1.0, w)
+                y0, sy = _axis_window(maps.valid.any(dim=0), r, r, 1.0, w)
+            wc = max(2, w // stride)
+            sxc = sx * (w - 1) / (wc - 1)
+            syc = sy * (w - 1) / (wc - 1)
+            ar = torch.arange(wc, dtype=torch.float32, device=dev)
+            ac = x0 + ar * sxc
+            bc = y0 + ar * syc
+            depth_c = _sample_grid(maps.depth, ac, bc)
+            pts = lattice_points(ac * sr[0] + b_min[0], bc * sr[1] + b_min[1],
+                                 (float(r) - depth_c) * sr[2] + b_min[2])
+            color_c = query_color(pts)[0].reshape(wc, wc, 3)
+            return from_window(color_c, x0, sxc, y0, syc, wc)
+        if reuse is not None:
+            w = reuse["w"]
+            idx, safe = reuse["idx"], reuse["safe"]
+            if telemetry is not None:
+                # a ray dropped at the refine level loses its texture too
+                telemetry.append(reuse["dropped"])
+            xw = reuse["aw"] * sr[0] + b_min[0]
+            yw = reuse["bw"] * sr[1] + b_min[1]
+            zw_sel = (float(r) - reuse["z"]) * sr[2] + b_min[2]    # [K]
+            pts = torch.stack([xw[safe // w], yw[safe % w], zw_sel],
+                              dim=-1)[None]                        # [1, K, 3]
+            color_w = self._scatter_colors(query_color(pts)[0], idx, w)
+            return from_window(color_w, reuse["x0"], reuse["sx"],
+                               reuse["y0"], reuse["sy"], w)
+        x0, sx = _axis_window(maps.valid.any(dim=1), r, r, 1.0, w)
+        y0, sy = _axis_window(maps.valid.any(dim=0), r, r, 1.0, w)
+        ar = torch.arange(w, dtype=torch.float32, device=dev)
+        aw = x0 + ar * sx
+        bw = y0 + ar * sy
+        depth_w = _sample_grid(maps.depth, aw, bw)
+        xw = aw * sr[0] + b_min[0]
+        yw = bw * sr[1] + b_min[1]
+        zw = (float(r) - depth_w) * sr[2] + b_min[2]
+        budget = None if color_grid is not None else _compact_rays(compact,
+                                                                   w, w)
+        if color_grid is not None:
+            color_w = color_grid(xw, yw, zw)
+        elif budget:
+            v_w = _sample_grid(maps.valid.float(), aw, bw) > 0.0
+            if telemetry is not None:
+                # valid pixels beyond the budget keep the white background
+                telemetry.append(torch.clamp(
+                    v_w.sum(dtype=torch.int32) - budget, min=0))
+            idx = _valid_indices(v_w.reshape(-1), budget)
+            safe = torch.where(idx < w * w, idx, torch.zeros_like(idx))
+            pts = torch.stack([xw[safe // w], yw[safe % w],
+                               zw.reshape(-1)[safe]], dim=-1)[None]
+            color_w = self._scatter_colors(query_color(pts)[0], idx, w)
         else:
-            x0, sx = _axis_window(maps.valid.any(dim=1), r, r, 1.0, w)
-            y0, sy = _axis_window(maps.valid.any(dim=0), r, r, 1.0, w)
-            ar = torch.arange(w, dtype=torch.float32, device=dev)
-            aw = x0 + ar * sx
-            bw = y0 + ar * sy
-            depth_w = _sample_grid(maps.depth, aw, bw)
-            color_w = color_grid(aw * sr[0] + b_min[0], bw * sr[1] + b_min[1],
-                                 (float(r) - depth_w) * sr[2] + b_min[2])
-            u = torch.clamp((fr - x0) / sx, 0.0, w - 1)
-            v = torch.clamp((fr - y0) / sy, 0.0, w - 1)
-            color = torch.stack([_sample_grid(color_w[..., k], u, v)
-                                 for k in range(3)], dim=-1)
-        color = color * 0.5 + 0.5
-        return torch.where(maps.valid[..., None], color,
-                           torch.ones_like(color))
+            color_w = query_color(lattice_points(xw, yw, zw))[0].reshape(
+                w, w, 3)
+        return from_window(color_w, x0, sx, y0, sy, w)
+
+    @staticmethod
+    def _scatter_colors(col: torch.Tensor, idx: torch.Tensor,
+                        w: int) -> torch.Tensor:
+        """Colours [K, 3] at the flat window indices ``idx`` on a white
+        [w, w, 3] lattice (fill entries of ``idx`` are dropped)."""
+        buf = torch.ones(w * w + 1, 3, dtype=col.dtype, device=col.device)
+        buf.index_put_((idx,), col)
+        return buf[:w * w].reshape(w, w, 3)
 
     @torch.no_grad()
     def frame(self, image_g: torch.Tensor,
-              image_c: Optional[torch.Tensor] = None, calib=None) -> dict:
+              image_c: Optional[torch.Tensor] = None, calib=None,
+              compact_hint: Optional[float] = None) -> dict:
         """One frame. images NHWC [1, H, W, 3]; calib a host [1, 4, 4]
         array (numpy; identity when None). -> {'depth', 'valid',
-        'render_norm', 'mask'} (+ 'render_tex' with netC and image_c)."""
+        'render_norm', 'mask'} (+ 'render_tex' with netC and image_c;
+        + 'compact_dropped' on compacted frames: the dropped valid rays
+        of each refine level, then of the texture stage).
+
+        The path follows the calib: frontal calibs take the grid queries,
+        in-plane rotations the ray taps, every other calib the rotated
+        path (module docstring).
+
+        compact_hint: the window-valid fraction measured on an earlier
+        frame (``compact_hint_from_valid``); rotated frames snap it up
+        COMPACT_LADDER and run that budget instead of the constructor's
+        ceiling. The output is identical whenever nothing drops, and drops
+        are counted. Ignored on frontal frames and when compaction is
+        off."""
         if calib is None:
             calib = np.eye(4, dtype=np.float32)[None]
         if isinstance(calib, torch.Tensor):
             calib = calib.detach().cpu().numpy()
-        if not self._calib_grid_ok(calib):
-            raise NotImplementedError(ROTATED_TODO)
+        cfg = self.config
+        use_taps = self._calib_taps_ok(calib)
+        use_grid = self._calib_grid_ok(calib)
+        if not use_taps and not cfg.rotated.march:
+            raise NotImplementedError(DENSE_TODO)
+        compact = None if use_taps else cfg.rotated.compact
+        if compact_hint is not None and compact is not None:
+            compact = _snap_budget(compact_hint, compact)
+        rot_k = () if use_taps else self._rot_anchor_plan(
+            calib, image_g.shape[1])
+
         calib_t = upload_async(np.asarray(calib, np.float32), self.device)
         dt = self.compute_dtype
         image_g = image_g.to(device=self.device, dtype=dt)
         feats_g = self._feats_f32(self.netG.filter(image_g))
 
-        maps = ray_pyramid(None, self.fine_res, levels=self.march_levels,
-                           taps=self.ray_taps,
-                           balance_value=self.recon.balance_value,
-                           b_min=self.recon.b_min, b_max=self.recon.b_max,
-                           window=self.ray_window,
-                           query_grid_fn=self._query_grid_fn(feats_g, calib_t),
-                           device=self.device)
+        if use_taps:
+            taps_fns = self._query_taps_fn(feats_g, calib_t)
+        elif any(rot_k):
+            # anchored ray query per refine level, K from the host-side
+            # plan; the dense march stays per-point (full-volume tap spans)
+            taps_fns = [self._query_anchored_fn(feats_g, calib_t, k)
+                        if k else None for k in rot_k]
+        else:
+            taps_fns = None
+        telemetry: list = []
+        tex_state: list = []
+        want_state = (cfg.texture.reuse_compact and not use_taps
+                      and self.netC is not None and image_c is not None)
+        maps = ray_pyramid(
+            self._query_occ_fn(feats_g, calib_t), self.fine_res,
+            levels=self.march_levels, taps=self.ray_taps,
+            balance_value=self.recon.balance_value, b_min=self.recon.b_min,
+            b_max=self.recon.b_max, window=self.ray_window,
+            query_taps_fn=taps_fns,
+            query_grid_fn=(self._query_grid_fn(feats_g, calib_t)
+                           if use_grid else None),
+            march_taps=use_taps, compact=compact, telemetry=telemetry,
+            compact_state=tex_state if want_state else None,
+            device=self.device)
         render_norm, mask = visualize(shade_normal(maps), self.render_size)
         out = {"depth": maps.depth, "valid": maps.valid,
                "render_norm": render_norm, "mask": mask}
@@ -221,12 +551,53 @@ class ReconEngine:
             # the f32 prior promotes the concatenated maps to f32, as in
             # the JAX engine
             feat_prior = feats_g[-1][-1]
-            feats_c = self._feats_f32(self.netC.filter(image_c, feat_prior))
-            tex = self._texture_canvas(maps, self.fine_res,
-                                       self._grid_color_fn(feats_c, calib_t))
+            feats_c = self.netC.filter(image_c, feat_prior)
+            if not (cfg.texture.bf16 and not use_taps):
+                feats_c = self._feats_f32(feats_c)
+            if use_grid:
+                tex = self._texture_canvas(
+                    maps, self.fine_res,
+                    color_grid=self._grid_color_fn(feats_c, calib_t))
+            else:
+                tex = self._texture_canvas(
+                    maps, self.fine_res,
+                    query_color=self._query_color_fn(feats_c, calib_t),
+                    compact=compact, telemetry=telemetry,
+                    reuse=tex_state[0] if tex_state else None)
             render_tex, mask_tex = visualize(tex, self.render_size)
             out.update({"render_tex": render_tex, "mask": mask_tex})
+        if telemetry:
+            out["compact_dropped"] = torch.stack(telemetry)
         return out
+
+    def compact_report(self, out: dict) -> str:
+        """Dropped-ray counts of the rotated compaction budgets from a
+        frame's output (fetches ``compact_dropped``). Overflow degrades
+        gracefully (dropped rays keep the coarse silhouette, dropped
+        texture pixels the white background under the valid mask), but it
+        must be visible."""
+        if "compact_dropped" not in out:
+            return "compact: dense (no ray compaction in this frame)"
+        dropped = out["compact_dropped"].detach().cpu().tolist()
+        labels = [f"refine{rc}->{rf}" for rc, rf in self._refine_pairs()]
+        if len(dropped) == len(labels) + 1:
+            labels.append("texture")
+        parts = [f"{lb}: {int(d)} dropped" for lb, d in zip(labels, dropped)]
+        if any(dropped):
+            return ("compact OVERFLOW (raise compact_rotated or shrink the"
+                    " subject window) — " + ", ".join(parts))
+        return "compact budgets ok — " + ", ".join(parts)
+
+    def compact_hint_from_valid(self, valid_fraction: float,
+                                safety: float = 1.3) -> float:
+        """Adaptive-budget hint from an earlier frame's fetched valid
+        fraction (valid pixels / full fine lattice): rescaled to the
+        window the budgets are fractions of, with headroom for the
+        subject's growth between frames. Feed it to
+        ``frame(compact_hint=...)``."""
+        w = self.ray_window or self.fine_res
+        window_frac = (self.fine_res / float(w)) ** 2
+        return float(valid_fraction) * window_frac * safety
 
     def frames(self, *args, **kwargs):
         raise NotImplementedError(DENSE_TODO)

@@ -7,11 +7,14 @@
 
 ``data/frame_golden.npz`` holds the JAX engine's f32 frame at that point
 on the committed weights, for the held-out capsule render of
-``tests/test_trained_pipeline.py`` (written by
+``tests/test_trained_pipeline.py``; ``data/frame_golden_rotated.npz`` the
+same image seen by the orbit camera at ``ROTATED_POSE`` (``rotated_calib``),
+the rotated defaults of ``RotatedCfg`` / ``TextureCfg``, with the anchor
+plan and ``compact_dropped`` of that frame (both written by
 ``python tests/test_torch_frame_golden.py --write``). ``compare_to_golden``
-holds a port frame to it with fractions, not a max error: the 4-stack
-backbone sums in another order on each device, and a crossing near a
-knife-edge amplifies that.
+holds a port frame to a golden with fractions, not a max error: the
+4-stack backbone sums in another order on each device, and a crossing
+near a knife-edge amplifies that.
 """
 
 from __future__ import annotations
@@ -24,9 +27,14 @@ import torch
 
 from .config import get_cfg_defaults
 from .engine import EngineCfg, RayCfg
+from .recon.calib import pifu_calib
 from .recon.hierarchy import HierarchicalRecon
+from .render.camera import orbit_extrinsic
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "frame_golden.npz")
+GOLDEN_ROTATED = os.path.join(os.path.dirname(__file__), "data",
+                              "frame_golden_rotated.npz")
+ROTATED_POSE = (20.0, 10.0)          # orbit yaw, pitch in degrees
 
 
 class Limits(NamedTuple):
@@ -48,6 +56,10 @@ F32_LIMITS = Limits(0.005, 2e-3, 2e-3, 2e-3, 0.995)
 # errors measured on an H100 (depth 0.283 fine voxels, render_norm 0.0254,
 # render_tex 8.5e-4; 1 - IOU 0.097%, held to 1%)
 BF16_LIMITS = Limits(0.01, 0.6, 0.05, 2e-3, 0.995)
+# the bf16 rotated frame against its f32 golden, set the same way (measured
+# on an H100: depth 0.290 fine voxels, render_norm 0.0309, render_tex
+# 8.1e-4; 1 - IOU 0.22%, held to 1%)
+BF16_ROTATED_LIMITS = Limits(0.01, 0.6, 0.06, 2e-3, 0.995)
 
 
 def rtl_config(compute_dtype: torch.dtype = torch.bfloat16):
@@ -63,6 +75,13 @@ def rtl_config(compute_dtype: torch.dtype = torch.bfloat16):
                     ray=RayCfg(mode="ray", fine_res=257, taps=6, window=192,
                                march_levels=tuple(c.recon.march_levels)))
     return recon, cfg
+
+
+def rotated_calib(yaw_deg: float = ROTATED_POSE[0],
+                  pitch_deg: float = ROTATED_POSE[1]) -> np.ndarray:
+    """[1, 4, 4] calib of the orbit camera at (yaw, pitch) over an identity
+    intrinsic: the free-viewpoint pose of the rotated golden."""
+    return pifu_calib(orbit_extrinsic(yaw_deg, pitch_deg), np.eye(4))
 
 
 def load_golden(path: str = GOLDEN) -> dict:

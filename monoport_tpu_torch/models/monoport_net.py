@@ -4,18 +4,19 @@
 Layouts follow the JAX package: images NHWC [B, H, W, C]; features
 [B, h, w, C]; points point-major [B, N, 3]; predictions [B, N, Res].
 Training (``get_loss``, per-stage supervision, the ``PIFuNetG``/``PIFuNetC``
-factories) and the anchored rotated query come with later slices (ROADMAP
-queue 1 items 7 and 11).
+factories) comes with a later slice (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..config import CN
+from ..ops.constants import device_constant
 from ..ops.projection import PROJECTIONS
 from ..ops.resize import interpolate_2d
 from ..ops.sampling import index, index_grid
@@ -24,6 +25,17 @@ from .heads import HEADS
 from .normalizers import PIFuNomalizer
 
 FeatStages = Sequence[Sequence[torch.Tensor]]
+
+
+def _anchor_positions(k: int) -> np.ndarray:
+    """Chord positions of k anchors: 0..1 evenly, a single anchor at 0."""
+    if k > 1:
+        return np.linspace(0.0, 1.0, k, dtype=np.float32)
+    return np.zeros((1,), np.float32)
+
+
+def _arange(k: int) -> np.ndarray:
+    return np.arange(k, dtype=np.float32)
 
 NORMALIZERS = {"PIFuNomalizer": PIFuNomalizer}
 
@@ -97,6 +109,66 @@ class MonoPortNet(nn.Module):
         feat = torch.cat([index(f, xy) for f in feats], dim=-1)
         pred = self._head_taps(feat, z_feat.to(feat.dtype), head_taps_fn)
         return in_img[..., None, None].to(pred.dtype) * pred
+
+    # -- anchored ray query (rotated-view fast path) -----------------------
+    def query_taps_anchored(self, feats_stages: FeatStages,
+                            xy_world: torch.Tensor, z_world: torch.Tensor,
+                            calibs: Optional[torch.Tensor] = None,
+                            transforms: Optional[torch.Tensor] = None,
+                            anchors: int = 2,
+                            head_anchor_fn=None) -> torch.Tensor:
+        """T z-taps per ray under any affine calib or a perspective net:
+        [B,R,2] xy + [B,R,T] z -> [B, R, T, Res].
+
+        A ray's projected path is a straight uv chord under both
+        projections. Every tap is projected exactly; features are gathered
+        at ``anchors`` evenly spaced points of the chord, and each tap's
+        feature is the piecewise-linear mix of its two bracketing anchors
+        (hat weights over alpha, the tap's exact position on the chord).
+        (u, v, zc) and the in-image mask per tap are exact; the feature is
+        approximate where the bilinear sample is not linear across a lerp
+        segment. ``head_anchor_fn(feat_k, w_taps, z_feat)`` takes the K
+        anchor features, the hat weights and the z features
+        (``ops/cuda/fused_ray_mlp.apply_anchor``); without it the taps are
+        mixed here and go through the plain head."""
+        feats = feats_stages[-1]
+        b, r, t = z_world.shape
+        k = anchors
+        base_t = torch.cat([xy_world[:, :, None].expand(b, r, t, 2),
+                            z_world[..., None]], dim=-1)     # [B, R, T, 3]
+        if calibs is not None:
+            xyz_t = self.projection(base_t.reshape(b, r * t, 3), calibs,
+                                    transforms).reshape(b, r, t, 3)
+        else:
+            xyz_t = base_t
+        uv_t = xyz_t[..., :2]                                # exact per tap
+        uv0 = uv_t[..., :1, :]
+        duv = uv_t[..., -1:, :] - uv0                        # [B, R, 1, 2]
+        denom = (duv * duv).sum(-1)                          # [B, R, 1]
+        alpha = torch.where(
+            denom > 1e-12,
+            ((uv_t - uv0) * duv).sum(-1) / torch.clamp(denom, min=1e-12),
+            torch.zeros_like(denom))                         # [B, R, T]
+        ak = device_constant(_anchor_positions, (k,), uv_t.device,
+                             torch.float32)
+        uv_k = uv0 + ak[:, None] * duv                       # [B, R, K, 2]
+        feat_k = torch.cat(
+            [index(f, uv_k.reshape(b, r * k, 2)) for f in feats],
+            dim=-1).reshape(b, r, k, -1)
+        # hat weights: tap t mixes its two bracketing anchors
+        pos = alpha[..., None] * (k - 1) - device_constant(
+            _arange, (k,), uv_t.device, torch.float32)
+        w_taps = torch.clamp(1.0 - torch.abs(pos), min=0.0)  # [B, R, T, K]
+        in_img = _in_image(uv_t[..., 0], uv_t[..., 1])       # [B, R, T]
+        z_feat = self.normalizer(xyz_t[..., 2]).to(feat_k.dtype)
+        if head_anchor_fn is not None:
+            pred = head_anchor_fn(feat_k, w_taps, z_feat)
+        else:
+            feat_t = torch.matmul(w_taps.to(feat_k.dtype), feat_k)
+            x = torch.cat([feat_t, z_feat[..., None]], dim=-1)
+            pred = self.surface_classifier(
+                x.reshape(b, r * t, -1)).reshape(b, r, t, -1)
+        return in_img[..., None].to(pred.dtype) * pred
 
     # -- grid-structured query (frontal fast path) -------------------------
     def query_taps_grid(self, feats_stages: FeatStages,

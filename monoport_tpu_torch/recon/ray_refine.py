@@ -1,15 +1,21 @@
-"""Per-ray surface localization — the frontal real-time path (port of the
-frontal branches of ``monoport_tpu/recon/ray_refine.py``).
+"""Per-ray surface localization — the march pyramid of the real-time
+frames, frontal and rotated (port of ``monoport_tpu/recon/ray_refine.py``
+without ``ray_refine``, the fine pass over a coarse volume, which comes
+with the dense/hierarchy slice: ROADMAP queue 1 item 8).
 
 ``ray_pyramid`` runs a dense first-crossing march at a coarse level, then
 refines through the remaining levels and finally ``fine_res`` inside an
 optional subject-bbox window. Each pass queries T z-taps per ray through
-the grid-structured query (separable sampling + the fused ray MLP), the
-ray-structured query, or a per-point ``query_fn``. All of it is 2D map
-work on ``[R, R]`` tensors; no 3D volume exists.
+the grid-structured query (separable sampling + the fused ray MLP), a
+ray-structured query (shared-feature taps, or the anchored query of a
+rotated view), or a per-point ``query_fn``. All of it is 2D map work on
+``[R, R]`` tensors; no 3D volume exists.
 
-The compacted (rotated-view) branches come with the rotated slice
-(ROADMAP queue 1 item 7) and raise here.
+Rotated views lose the outer-product lattice, so their refine levels are
+compacted: only the coarse-valid rays are queried, padded to a static
+budget. Shapes stay static and nothing here synchronises the stream: the
+valid rays are selected with a cumulative sum and a scatter (no
+``nonzero``), and the dropped-ray counts stay device scalars.
 """
 
 from __future__ import annotations
@@ -60,10 +66,17 @@ def _refine_core(query_fn: Callable | None, depth_f: torch.Tensor,
                  rf: int, taps: int, scale: float, balance_value: float,
                  b_min, b_max, spacing=(1.0, 1.0),
                  query_taps_fn: Callable | None = None,
-                 query_grid_fn: Callable | None = None) -> SurfaceMaps:
+                 query_grid_fn: Callable | None = None,
+                 compact_budget: int | None = None,
+                 telemetry: list | None = None,
+                 compact_state: list | None = None) -> SurfaceMaps:
     """Fine pass over the outer-product ray grid ax [H] x by [W] with the
     upsampled coarse maps depth_f/valid_f [H, W]; ``spacing`` is the ray
-    pitch in fine units along each axis."""
+    pitch in fine units along each axis. ``compact_budget``: query only
+    the coarse-valid rays, padded to this static count
+    (``_refine_core_compact``, which also documents ``telemetry`` and
+    ``compact_state``); the grid path ignores it, its lattice must stay an
+    outer product."""
     dev = depth_f.device
     pad = math.ceil(scale) + 1
     offsets = device_constant(_tap_offsets, (pad, taps), dev, torch.float32)
@@ -72,6 +85,14 @@ def _refine_core(query_fn: Callable | None, depth_f: torch.Tensor,
     h, w = depth_f.shape
     xw1 = ax * step[0] + b_min[0]                               # [H]
     yw1 = by * step[1] + b_min[1]                               # [W]
+
+    if compact_budget and query_grid_fn is None:
+        return _refine_core_compact(query_fn, depth_f, valid_f, xw1, yw1,
+                                    rf, offsets, balance_value, step, b_min,
+                                    spacing, compact_budget,
+                                    query_taps_fn=query_taps_fn,
+                                    telemetry=telemetry,
+                                    compact_state=compact_state)
 
     c_taps = torch.clamp(depth_f[..., None] + offsets, 0.0, rf - 1)
     # vol index i = rf-1-c; world z from it
@@ -103,6 +124,102 @@ def _query_lattice(query_fn, query_taps_fn, query_grid_fn, xw1, yw1, wz):
     pts = torch.stack([xw1[:, None, None].expand(h, w, taps),
                        yw1[None, :, None].expand(h, w, taps), wz], dim=-1)
     return query_fn(pts.reshape(1, -1, 3))[0, :, 0].reshape(h, w, taps).float()
+
+
+def _valid_indices(flat_valid: torch.Tensor, budget: int) -> torch.Tensor:
+    """The first ``budget`` indices at which ``flat_valid`` [n] is set,
+    ascending, filled with n (``flatnonzero`` with a static size). A
+    cumulative sum ranks the set entries and a scatter places them, so no
+    count reaches the host."""
+    n = flat_valid.shape[0]
+    ar = torch.arange(n, device=flat_valid.device)
+    rank = torch.cumsum(flat_valid, dim=0) - 1
+    # unset entries and those beyond the budget land in a spare last slot
+    slot = torch.where(flat_valid & (rank < budget), rank,
+                       torch.full_like(rank, budget))
+    idx = torch.full((budget + 1,), n, dtype=ar.dtype, device=ar.device)
+    return idx.scatter(0, slot, ar)[:budget]
+
+
+def _scatter_rows(init: torch.Tensor, idx: torch.Tensor,
+                  upd: torch.Tensor) -> torch.Tensor:
+    """``init`` [h, w] with ``upd`` [K] written at the flat indices ``idx``;
+    fill entries of ``idx`` (= h * w) go to a spare slot that is cut."""
+    h, w = init.shape
+    flat = torch.cat([init.reshape(-1), init.new_zeros(1)])
+    return flat.scatter(0, idx, upd.to(init.dtype))[:h * w].reshape(h, w)
+
+
+def _refine_core_compact(query_fn: Callable | None, depth_f, valid_f, xw1,
+                         yw1, rf: int, offsets, balance_value: float, step,
+                         b_min, spacing, budget: int,
+                         query_taps_fn: Callable | None = None,
+                         telemetry: list | None = None,
+                         compact_state: list | None = None) -> SurfaceMaps:
+    """Compacted fine pass: gather the coarse-valid rays (padded to
+    ``budget``), query only their taps, scatter the crossings back onto
+    the lattice. The ray batch rides ``query_taps_fn`` when given (the
+    anchored rotated query takes any [1,R,2] + [1,R,T] ray batch) else the
+    per-point ``query_fn``. Valid-ray results equal the dense pass (their
+    taps are the same points); rays beyond the budget keep the coarse
+    silhouette, never a hole.
+    ``telemetry``: a list that receives the dropped-ray count (valid rays
+    beyond the budget) as a 0-d int32 device tensor.
+    ``compact_state``: a list that receives the gathered index set and the
+    refined per-ray depth, so a per-point texture query can ride the same
+    compaction (``engine._texture_canvas`` ``reuse``)."""
+    h, w = depth_f.shape
+    n = h * w
+    flat_valid = valid_f.reshape(-1)
+    dropped = None
+    if telemetry is not None or compact_state is not None:
+        dropped = torch.clamp(flat_valid.sum(dtype=torch.int32) - budget,
+                              min=0)
+    if telemetry is not None:
+        telemetry.append(dropped)
+    idx = _valid_indices(flat_valid, budget)                     # [K]
+    sel_ok = idx < n
+    safe = torch.where(sel_ok, idx, torch.zeros_like(idx))
+    d_sel = depth_f.reshape(-1)[safe]                            # [K]
+    c_taps = torch.clamp(d_sel[:, None] + offsets, 0.0, rf - 1)  # [K, T]
+    wz = ((rf - 1) - c_taps) * step[2] + b_min[2]
+    wx = xw1[safe // w]
+    wy = yw1[safe % w]
+    taps = offsets.shape[0]
+    if query_taps_fn is not None:
+        xy = torch.stack([wx, wy], dim=-1)[None]                 # [1, K, 2]
+        vals = query_taps_fn(xy, wz[None])[0].float()
+    else:
+        pts = torch.stack([wx[:, None].expand(budget, taps),
+                           wy[:, None].expand(budget, taps), wz],
+                          dim=-1).reshape(1, -1, 3)
+        vals = query_fn(pts)[0, :, 0].reshape(budget, taps).float()
+
+    z, hit, v1, v2, c1, c2 = _first_crossing(vals, c_taps, balance_value)
+    z = torch.where(hit, torch.clamp(z, 0.0, float(rf)), d_sel)
+    dvdz = (v1 - v2) / torch.clamp(c1 - c2, min=1e-6)
+    if compact_state is not None:
+        compact_state.append({"idx": idx, "safe": safe, "z": z,
+                              "dropped": dropped})
+
+    # unqueried rays keep the coarse depth and a viewer-facing normal, and
+    # on budget overflow only, the coarse silhouette instead of a hole
+    z_full = _scatter_rows(depth_f, idx, z)
+    hit_full = _scatter_rows(torch.zeros_like(valid_f), idx, hit)
+    queried = _scatter_rows(torch.zeros_like(valid_f), idx, sel_ok)
+    dvdz_full = _scatter_rows(torch.zeros_like(depth_f), idx, dvdz)
+    nz_full = _scatter_rows(torch.full_like(depth_f, -1.0), idx, v2 - v1)
+    valid = torch.where(queried, hit_full, valid_f) & valid_f
+    return _normals_from_maps(z_full, dvdz_full, nz_full, valid, h, w,
+                              spacing)
+
+
+def _compact_rays(compact: float | None, h: int, w: int) -> int | None:
+    """Ray budget of a compacted pass: ``compact`` x the lattice size,
+    rounded up to a multiple of 256 (None / >= 1.0 -> dense)."""
+    if not compact or compact >= 1.0:
+        return None
+    return min(-(-int(h * w * compact) // 256) * 256, h * w)
 
 
 def _shift2(z: torch.Tensor, dim: int) -> torch.Tensor:
@@ -146,14 +263,18 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
                      window: int | None = None,
                      query_taps_fn: Callable | None = None,
                      query_grid_fn: Callable | None = None,
-                     compact: float | None = None) -> SurfaceMaps:
+                     compact: float | None = None,
+                     telemetry: list | None = None,
+                     compact_state: list | None = None) -> SurfaceMaps:
     """Fine pass from coarse per-ray maps (rc^2 grid, depth in rc-voxel
     units). ``window``: refine only a window^2 ray block spread over the
-    subject's coarse bbox at stride >= 1; outside it the coarse maps stay."""
-    if compact:
-        raise NotImplementedError(
-            "compacted refines belong to the rotated slice (ROADMAP queue 1 "
-            "item 7)")
+    subject's coarse bbox at stride >= 1; outside it the coarse maps stay.
+    ``compact``: non-grid paths query just the coarse-valid rays, padded
+    to a static budget of this fraction of the lattice; ``telemetry``
+    collects the dropped-ray counts. ``compact_state``: windowed compact
+    path only; receives the window geometry (x0/sx/y0/sy, the aw/bw axes
+    in fine units, w) with the core's gathered indices and refined
+    per-ray depth, for a texture query that reuses this compaction."""
     rf = fine_res
     dev = coarse.depth.device
     scale = (rf - 1) / (rc - 1)
@@ -164,7 +285,9 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
         return _refine_core(query_fn, depth_f, valid_f, a, a, rf, taps,
                             scale, balance_value, b_min, b_max,
                             query_taps_fn=query_taps_fn,
-                            query_grid_fn=query_grid_fn)
+                            query_grid_fn=query_grid_fn,
+                            compact_budget=_compact_rays(compact, rf, rf),
+                            telemetry=telemetry)
 
     x0, sx = _axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
     y0, sy = _axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
@@ -173,10 +296,18 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
     bw = y0 + ar_w * sy
     d_w = _sample_grid(depth_f, aw, bw)
     v_w = _sample_grid(valid_f.float(), aw, bw) > 0.0
+    core_state: list | None = [] if compact_state is not None else None
     maps_w = _refine_core(query_fn, d_w, v_w, aw, bw, rf, taps, scale,
                           balance_value, b_min, b_max, spacing=(sx, sy),
                           query_taps_fn=query_taps_fn,
-                          query_grid_fn=query_grid_fn)
+                          query_grid_fn=query_grid_fn,
+                          compact_budget=_compact_rays(compact, window,
+                                                       window),
+                          telemetry=telemetry, compact_state=core_state)
+    if core_state:
+        compact_state.append({**core_state[0], "w": window, "x0": x0,
+                              "sx": sx, "y0": y0, "sy": sy, "aw": aw,
+                              "bw": bw})
 
     # resample the refined window back onto the full fine grid (an exact
     # gather at stride 1); outside the window keep the coarse maps
@@ -254,25 +385,50 @@ def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
                 taps: int = 6, balance_value: float = 0.5,
                 b_min=(-1.0, -1.0, -1.0), b_max=(1.0, 1.0, 1.0),
                 window: int | None = None,
-                query_taps_fn: Callable | None = None,
+                query_taps_fn=None,
                 query_grid_fn: Callable | None = None,
+                compact: float | None = None, march_taps: bool = True,
+                telemetry: list | None = None,
+                compact_state: list | None = None,
                 device=None) -> SurfaceMaps:
     """Volume-free coarse-to-fine surface localization: dense march at
     levels[0], then ``refine_from_maps`` through the remaining levels and
-    finally ``fine_res`` (with the optional bbox window)."""
+    finally ``fine_res`` (with the optional bbox window).
+    ``compact``: non-grid paths; each refine level queries just its
+    coarse-valid rays at this budget fraction.
+    ``march_taps``: give the dense march ``query_taps_fn`` too. False for
+    the rotated anchored query, whose feature lerp holds only over the
+    refine levels' short tap spans: the march then runs the exact
+    per-point ``query_fn``.
+    ``query_taps_fn`` may be a sequence of one fn (or None) per refine
+    level (len(levels) entries: levels[0]->levels[1], ...,
+    levels[-1]->fine_res): the anchored query picks its anchor count per
+    level, and a level without one runs exact per-point."""
+    if isinstance(query_taps_fn, (list, tuple)):
+        if march_taps:
+            raise ValueError("per-level taps fns are refine-only (the march "
+                             "has no entry)")
+        if len(query_taps_fn) != len(levels):
+            raise ValueError(f"{len(query_taps_fn)} taps fns for "
+                             f"{len(levels)} refine levels")
+        fns = list(query_taps_fn)
+    else:
+        fns = [query_taps_fn] * len(levels)
     maps = ray_march(query_fn, levels[0], balance_value, b_min, b_max,
-                     query_taps_fn=query_taps_fn, query_grid_fn=query_grid_fn,
-                     device=device)
-    for rc, rl in zip(levels[:-1], levels[1:]):
+                     query_taps_fn=fns[0] if march_taps else None,
+                     query_grid_fn=query_grid_fn, device=device)
+    for i, (rc, rl) in enumerate(zip(levels[:-1], levels[1:])):
         maps = refine_from_maps(query_fn, maps, rc, rl, taps=taps,
                                 balance_value=balance_value, b_min=b_min,
-                                b_max=b_max, query_taps_fn=query_taps_fn,
-                                query_grid_fn=query_grid_fn)
+                                b_max=b_max, query_taps_fn=fns[i],
+                                query_grid_fn=query_grid_fn, compact=compact,
+                                telemetry=telemetry)
     return refine_from_maps(query_fn, maps, levels[-1], fine_res, taps=taps,
                             balance_value=balance_value, b_min=b_min,
                             b_max=b_max, window=window,
-                            query_taps_fn=query_taps_fn,
-                            query_grid_fn=query_grid_fn)
+                            query_taps_fn=fns[-1],
+                            query_grid_fn=query_grid_fn, compact=compact,
+                            telemetry=telemetry, compact_state=compact_state)
 
 
 def _sample_grid(img: torch.Tensor, xi: torch.Tensor,

@@ -1,13 +1,16 @@
 """PyTorch port, engine: ReconEngine.frame against monoport_tpu's engine on
 the small frontal frame (render_size 32, fine_res 33, 4 taps, march
 (9, 17), a 24-ray window) with the small nets of tests/test_grid_query.py,
-f32 on the CPU; plus the device rule and the paths that raise.
+f32 on the CPU; plus the device rule and the paths that raise. The
+rotated and in-plane-rotated frames are in tests/test_torch_rotated.py.
 
 Tolerances: depth 2e-4 fine voxels and render_norm/render_tex 2e-3, on
 all but a stated fraction of pixels: a random-init net outputs occupancy
 ~0.5 everywhere, so a last-bit difference in a sum's order flips the
 ``> 0.5`` test on a few knife-edge rays (the same allowance
 test_grid_query.py makes between two JAX paths)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -23,7 +26,8 @@ from monoport_tpu.models import MonoPortNet as JaxNet
 from monoport_tpu.recon.hierarchy import HierarchicalRecon as JaxRecon
 from monoport_tpu_torch import weights
 from monoport_tpu_torch.config import CN
-from monoport_tpu_torch.engine import EngineCfg, RayCfg, ReconEngine
+from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
+                                       RotatedCfg)
 from monoport_tpu_torch.recon.hierarchy import HierarchicalRecon
 
 torch.set_num_threads(2)
@@ -71,6 +75,8 @@ def _port_engine(setup, **over):
                                fine_res=kw["fine_res"], taps=kw["taps"],
                                window=kw["window"],
                                march_levels=kw["march_levels"]))
+    if "rotated" in kw:
+        cfg = dataclasses.replace(cfg, rotated=kw["rotated"])
     return ReconEngine(tg, tc, recon=HierarchicalRecon(resolutions=(9, 17),
                                                  budgets=(0, 2048)),
                        config=cfg, device="cpu")
@@ -114,6 +120,9 @@ def test_engine_without_device_needs_cuda(setup, monkeypatch):
 
 
 def test_other_paths_raise_naming_their_roadmap_item(setup):
+    """Rotated and in-plane-rotated calibs run; the dense mode, the
+    hierarchy fallback of rotated frames, clips and the volume evaluator
+    raise and name their slice."""
     eng = _port_engine(setup)
     image = torch.from_numpy(setup["image"])
     rotated = np.eye(4, dtype=np.float32)[None]
@@ -121,9 +130,15 @@ def test_other_paths_raise_naming_their_roadmap_item(setup):
     inplane = np.eye(4, dtype=np.float32)[None]
     inplane[0, 0, 1] = 0.3                   # taps ok, grid not
     assert eng._calib_taps_ok(inplane) and not eng._calib_grid_ok(inplane)
+    assert not eng._calib_taps_ok(rotated)
     for calib in (rotated, inplane):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            eng.frame(image, image, calib)
+        out = eng.frame(image, image, calib)
+        assert out["depth"].shape == (33, 33)
+        assert torch.isfinite(out["render_tex"]).all()
+    fallback = _port_engine(setup, rotated=RotatedCfg(march=False))
+    assert fallback.frame(image, image)["depth"].shape == (33, 33)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        fallback.frame(image, image, rotated)
     with pytest.raises(NotImplementedError, match="item 8"):
         _port_engine(setup, mode="dense")
     with pytest.raises(NotImplementedError, match="item 8"):

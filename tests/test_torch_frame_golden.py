@@ -1,16 +1,19 @@
-"""Full-width golden frame of the PyTorch port.
+"""Full-width golden frames of the PyTorch port.
 
 ``python tests/test_torch_frame_golden.py --write`` runs the JAX engine on
-the CPU at the real-time operating point in f32 (XLA twin of the ray
-kernel, which in f32 is the kernel's math; matmul precision "highest") on
-the committed weights and the held-out capsule render of
-tests/test_trained_pipeline.py (same image for netG and netC, identity
-calib), and stores image, calib, depth, valid, render_norm and render_tex
-as f32 in ``monoport_tpu_torch/data/frame_golden.npz``.
+the CPU at the real-time operating point in f32 (XLA twins of the ray
+kernels, which in f32 are the kernels' math; matmul precision "highest")
+on the committed weights and the held-out capsule render of
+tests/test_trained_pipeline.py (same image for netG and netC), and stores
+image, calib, depth, valid, render_norm and render_tex as f32: the frontal
+frame (identity calib) in ``monoport_tpu_torch/data/frame_golden.npz``,
+the rotated frame (the orbit camera at ``frame_check.ROTATED_POSE``, the
+rotated defaults of the engine) in ``.../frame_golden_rotated.npz``, with
+its anchor plan (0 = a per-point level) and ``compact_dropped``.
 
-The slow test runs the port's CPU frame on the stored image and holds it
-to the golden with ``frame_check.compare_to_golden``; ``chip_smoke.py``
-does the same with the card's f32 frame."""
+The slow tests run the port's CPU frames on the stored image and hold them
+to the goldens with ``frame_check.compare_to_golden``; ``chip_smoke.py``
+does the same with the card's frames."""
 
 import os
 import sys
@@ -24,7 +27,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 from monoport_tpu_torch import frame_check  # noqa: E402
 
 
-def write_golden(path: str = frame_check.GOLDEN) -> dict:
+def write_golden(path: str = frame_check.GOLDEN,
+                 rotated_path: str = frame_check.GOLDEN_ROTATED) -> dict:
     import jax
     import jax.numpy as jnp
 
@@ -48,30 +52,38 @@ def write_golden(path: str = frame_check.GOLDEN) -> dict:
         data, "netc_capsule.npz"))[0]}
     image, _ = render_front(skeleton3d(jax.random.PRNGKey(4242)), 512)
     image = np.asarray(image, np.float32)[None]
-    calib = np.eye(4, dtype=np.float32)[None]
     recon = HierarchicalRecon(resolutions=(17, 33, 65),
                               budgets=(0, 4096, 16384), select="uncertain")
     eng = ReconEngine(netG, netC, recon=recon, config=EngineCfg.flat(
         mode="ray", fine_res=257, ray_taps=6, ray_window=192,
         march_levels=tuple(cfg.recon.march_levels),
         compute_dtype=jnp.float32, use_pallas=False))
-    out = eng.frame(params_g, jnp.asarray(image), params_c,
-                    jnp.asarray(image), calib)
-    golden = {"image": image, "calib": calib,
-              "depth": np.asarray(out["depth"], np.float32),
-              "valid": np.asarray(out["valid"], bool),
-              "render_norm": np.asarray(out["render_norm"], np.float32),
-              "render_tex": np.asarray(out["render_tex"], np.float32)}
-    np.savez_compressed(path, **golden)
-    return golden
+    goldens = {}
+    for name, target, calib in (
+            ("frontal", path, np.eye(4, dtype=np.float32)[None]),
+            ("rotated", rotated_path, frame_check.rotated_calib())):
+        out = eng.frame(params_g, jnp.asarray(image), params_c,
+                        jnp.asarray(image), calib)
+        golden = {"image": image, "calib": calib,
+                  "depth": np.asarray(out["depth"], np.float32),
+                  "valid": np.asarray(out["valid"], bool),
+                  "render_norm": np.asarray(out["render_norm"], np.float32),
+                  "render_tex": np.asarray(out["render_tex"], np.float32)}
+        if name == "rotated":
+            plan = eng._rot_anchor_plan(calib, image.shape[1])
+            golden["anchor_plan"] = np.asarray([k or 0 for k in plan],
+                                               np.int32)
+            golden["compact_dropped"] = np.asarray(out["compact_dropped"],
+                                                   np.int32)
+        np.savez_compressed(target, **golden)
+        goldens[name] = golden
+    return goldens
 
 
-@pytest.mark.slow
-def test_cpu_frame_matches_golden():
+def _cpu_frame(golden: dict) -> dict:
     from monoport_tpu_torch.engine import ReconEngine
     from monoport_tpu_torch.weights import load_default_networks
 
-    golden = frame_check.load_golden()
     netG, netC = load_default_networks(device="cpu")
     recon, cfg = frame_check.rtl_config(torch.float32)
     eng = ReconEngine(netG, netC, recon=recon, config=cfg, device="cpu")
@@ -86,8 +98,27 @@ def test_cpu_frame_matches_golden():
         out = eng.frame(image, image, golden["calib"])
     finally:
         torch.set_num_threads(threads)
+    return eng, out
+
+
+@pytest.mark.slow
+def test_cpu_frame_matches_golden():
+    golden = frame_check.load_golden()
+    _, out = _cpu_frame(golden)
     res = frame_check.compare_to_golden(out, golden)
     assert res["ok"], res
+
+
+@pytest.mark.slow
+def test_cpu_rotated_frame_matches_golden():
+    golden = frame_check.load_golden(frame_check.GOLDEN_ROTATED)
+    eng, out = _cpu_frame(golden)
+    plan = eng._rot_anchor_plan(golden["calib"], golden["image"].shape[1])
+    assert [k or 0 for k in plan] == golden["anchor_plan"].tolist() == [5, 3]
+    res = frame_check.compare_to_golden(out, golden)
+    assert res["ok"], res
+    np.testing.assert_array_equal(out["compact_dropped"].numpy(),
+                                  golden["compact_dropped"])
 
 
 def _synthetic_frame():
@@ -124,6 +155,8 @@ def test_compare_to_golden_counts_over_the_subject(fault):
 if __name__ == "__main__":
     if "--write" not in sys.argv:
         sys.exit("usage: python tests/test_torch_frame_golden.py --write")
-    g = write_golden()
-    print({k: (v.shape, str(v.dtype)) for k, v in g.items()},
-          "valid fraction", float(g["valid"].mean()))
+    for name, g in write_golden().items():
+        print(name, {k: (v.shape, str(v.dtype)) for k, v in g.items()},
+              "valid fraction", float(g["valid"].mean()),
+              {k: g[k].tolist() for k in ("anchor_plan", "compact_dropped")
+               if k in g})

@@ -110,6 +110,10 @@ def test_shade_and_visualize_match_jax():
 
 
 def test_compacted_refine_is_a_later_slice():
-    coarse = trr.ray_march(_torch_occ, 9)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trr.refine_from_maps(_torch_occ, coarse, 9, 17, compact=0.5)
+    """The compacted refine came with the rotated slice: it now runs, and
+    equals the JAX package (more cases in tests/test_torch_rotated.py)."""
+    coarse_t = trr.ray_march(_torch_occ, 9)
+    coarse_j = jrr.ray_march(_jax_occ, 9)
+    got = trr.refine_from_maps(_torch_occ, coarse_t, 9, 17, compact=0.5)
+    want = jrr.refine_from_maps(_jax_occ, coarse_j, 9, 17, compact=0.5)
+    _check(got, want)
