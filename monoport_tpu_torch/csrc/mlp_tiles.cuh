@@ -1,5 +1,6 @@
 // Shared device code of the fused skip-concat MLP kernels for Hopper (sm_90a):
-// fused_ray_mlp.cu (ray and anchored ray MLP) and fused_mlp.cu (per-point MLP)
+// fused_ray_mlp.cu (ray and anchored ray MLP), fused_mlp.cu (per-point MLP)
+// and fused_gather_mlp.cu (ray MLP with the bilinear feature gather inside)
 // include this file and add their plain C entry points.
 //
 // One function covers the three forms. A "ray" r carries n_anchors input
@@ -10,7 +11,9 @@
 // leaky-ReLU 0.01 between layers, sigmoid / tanh / none after the last.
 //  * ray MLP:       n_anchors = 1, no weights (w = 1);
 //  * anchored MLP:  n_anchors = K, w = the per-tap hat weights (f32);
-//  * per-point MLP: n_anchors = 1, T = 1, no z term (z is a column of feat).
+//  * per-point MLP: n_anchors = 1, T = 1, no z term (z is a column of feat);
+//  * gathering ray MLP: the ray MLP whose input row is not read but made in
+//    shared memory from four rows of a [H*W, C] table (gather_xproj_kernel).
 // Operands are bf16 or f32, accumulation is f32; xp and h . W_h stay f32
 // and h is rounded to the operand type only after each activation.
 //
@@ -199,6 +202,24 @@ struct Bf16Cfg {
   static __device__ __forceinline__ T from_float(float x) {
     return __float2bfloat16(x);
   }
+  // the 8 values of a 16-byte vector as floats, and back (rounded)
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return raw;
+  }
   // W rounded values to p (W = 2: one 32-bit store, p 4-byte aligned)
   template <int W>
   static __device__ __forceinline__ void store(T* p, const float* v) {
@@ -265,6 +286,17 @@ struct F32Cfg {
   }
 
   static __device__ __forceinline__ T from_float(float x) { return x; }
+  // the 4 values of a 16-byte vector as floats, and back
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
   template <int W>
   static __device__ __forceinline__ void store(T* p, const float* v) {
 #pragma unroll
@@ -284,6 +316,43 @@ __device__ void load_rows(T* dst, int lda, const T* src, int r0, int n_rows,
     if (r0 + m < n_rows)
       v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + m) * K + kv * V);
     *reinterpret_cast<uint4*>(dst + m * lda + kv * V) = v;
+  }
+}
+
+// Make BM input rows in shared memory (row stride lda) by bilinear gather:
+// row m = sum_k wgt[m, k] * table[idx[m, k]] over its four taps, table
+// row-major [*, K] in the operand type. A thread makes one 16-byte vector of
+// a row from four 16-byte loads (a warp reads whole 512-byte bf16 rows of
+// the 256-channel map); products and sums are f32, rounded one by one and
+// added in tap order, which is the plain version's arithmetic bit for bit
+// (no fused multiply-add), then one rounding to the operand type. s_idx,
+// s_wgt: the block's [BM, 4] indices and weights in shared memory; a tap
+// outside the image carries a clipped index and weight 0, as do rows past
+// the end.
+template <class Cfg>
+__device__ void gather_rows(typename Cfg::T* dst, int lda,
+                            const typename Cfg::T* __restrict__ table,
+                            const int* s_idx, const float* s_wgt, int K,
+                            int BM) {
+  using T = typename Cfg::T;
+  constexpr int V = 16 / sizeof(T);
+  for (int q = threadIdx.x; q < BM * (K / V); q += kThreads) {
+    const int m = q / (K / V), kv = q % (K / V);
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          table + (size_t)s_idx[m * 4 + k] * K + kv * V);
+      const float w = s_wgt[m * 4 + k];
+      float f[V];
+      Cfg::unpack(raw, f);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float p = __fmul_rn(f[j], w);
+        acc[j] = k == 0 ? p : __fadd_rn(acc[j], p);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + m * lda + kv * V) = Cfg::pack(acc);
   }
 }
 
@@ -324,6 +393,27 @@ __device__ __forceinline__ void shared_proj(float* sp,
   }
 }
 
+// Columns [n0, n0 + BN) of xp for the block's BM input rows in sA (rows r0..).
+template <class Cfg>
+__device__ __forceinline__ void xproj_columns(
+    const typename Cfg::T* sA, int lda, int c_f,
+    const typename Cfg::T* __restrict__ wf, int n0, int ntot,
+    typename Cfg::T* sB, float* __restrict__ xp, int r0, int R) {
+  Cfg::template gemm<true>(
+      sA, lda, c_f, wf, n0, ntot, sB, [&](int m, int col, auto... vs) {
+        constexpr int W = sizeof...(vs);
+        const float v[W] = {vs...};
+        if (r0 + m >= R || col >= ntot) return;
+        float* p = xp + (size_t)(r0 + m) * ntot + col;
+        if constexpr (W == 2) {
+          *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < W; ++j) p[j] = v[j];
+        }
+      });
+}
+
 // xp[R, ntot] = feat[R, C_f] . wf^T, wf^T stored [ntot, C_f].
 template <class Cfg>
 __global__ void __launch_bounds__(kThreads)
@@ -338,19 +428,40 @@ __global__ void __launch_bounds__(kThreads)
   const int r0 = blockIdx.y * Cfg::BM;
   load_rows(sA, lda, feat, r0, R, c_f, Cfg::BM);
   __syncthreads();
-  Cfg::template gemm<true>(sA, lda, c_f, wf, blockIdx.x * Cfg::BN, ntot, sB,
-            [&](int m, int col, auto... vs) {
-              constexpr int W = sizeof...(vs);
-              const float v[W] = {vs...};
-              if (r0 + m >= R || col >= ntot) return;
-              float* p = xp + (size_t)(r0 + m) * ntot + col;
-              if constexpr (W == 2) {
-                *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-              } else {
-#pragma unroll
-                for (int j = 0; j < W; ++j) p[j] = v[j];
-              }
-            });
+  xproj_columns<Cfg>(sA, lda, c_f, wf, blockIdx.x * Cfg::BN, ntot, sB, xp, r0,
+                     R);
+}
+
+// The same projection with the input rows gathered inside the kernel:
+// row r = sum_k wgt[r, k] * table[idx[r, k]] (gather_rows), never written to
+// device memory. The grid is the row blocks alone: a block gathers its BM
+// rows once and walks every column tile itself.
+template <class Cfg>
+__global__ void __launch_bounds__(kThreads)
+    gather_xproj_kernel(const typename Cfg::T* __restrict__ table,
+                        const int* __restrict__ idx,
+                        const float* __restrict__ wgt,
+                        const typename Cfg::T* __restrict__ wf,
+                        float* __restrict__ xp, int R, int c_f, int ntot) {
+  using T = typename Cfg::T;
+  constexpr int BM = Cfg::BM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lda = c_f + Cfg::LD_PAD;
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + BM * lda;
+  int* s_idx = reinterpret_cast<int*>(sB + Cfg::SB_ELEMS);
+  float* s_wgt = reinterpret_cast<float*>(s_idx + BM * 4);
+  const int r0 = blockIdx.x * BM;
+  for (int q = threadIdx.x; q < BM * 4; q += kThreads) {
+    const bool live = r0 + q / 4 < R;
+    s_idx[q] = live ? idx[(size_t)r0 * 4 + q] : 0;
+    s_wgt[q] = live ? wgt[(size_t)r0 * 4 + q] : 0.f;
+  }
+  __syncthreads();
+  gather_rows<Cfg>(sA, lda, table, s_idx, s_wgt, c_f, BM);
+  __syncthreads();
+  for (int n0 = 0; n0 < ntot; n0 += Cfg::BN)
+    xproj_columns<Cfg>(sA, lda, c_f, wf, n0, ntot, sB, xp, r0, R);
 }
 
 // The per-(ray, tap) MLP over BM flattened rows (row = ray * taps + tap).
@@ -457,11 +568,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// gidx, gwgt: null, or the [R, 4] bilinear taps of the gathering form; feat
+// is then the [*, C_f] table and is not walked with the rays.
 template <class Cfg>
 int launch(const void* feat, const float* z, const float* wk, float* out,
            float* xp, int xp_rows, const void* wf, const void* wh,
            const float* wz, const float* b, const MlpDims& d, int R, int taps,
-           int n_anchors, cudaStream_t stream) {
+           int n_anchors, cudaStream_t stream, const int* gidx,
+           const float* gwgt) {
   using T = typename Cfg::T;
   const int c_f = d.width[0];
   int max_even = 0, max_odd = 0;
@@ -478,9 +592,15 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
       sizeof(T) * ((size_t)Cfg::BM * (ld_a + ld_b) + Cfg::SB_ELEMS) +
       Cfg::BM * (sizeof(float) + sizeof(int)) +
       (size_t)Cfg::BM * n_anchors * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      xproj_kernel<Cfg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_x);
+  const size_t smem_g = smem_x + (size_t)Cfg::BM * 4 * (sizeof(int) +
+                                                        sizeof(float));
+  cudaError_t err =
+      gidx ? cudaFuncSetAttribute(gather_xproj_kernel<Cfg>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_g)
+           : cudaFuncSetAttribute(xproj_kernel<Cfg>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem_x);
   if (err != cudaSuccess) return (int)err;
   auto kernel = wk ? mlp_kernel<Cfg, true, true>
                    : (taps == 1 ? mlp_kernel<Cfg, false, true>
@@ -509,11 +629,18 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
   for (int r0 = 0; r0 < R; r0 += chunk) {
     const int n = (R - r0 < chunk) ? R - r0 : chunk;
     const int in_rows = n * n_anchors;
-    dim3 grid_x((d.ntot + Cfg::BN - 1) / Cfg::BN,
-                (in_rows + Cfg::BM - 1) / Cfg::BM);
-    xproj_kernel<Cfg><<<grid_x, kThreads, smem_x, stream>>>(
-        static_cast<const T*>(feat) + (size_t)r0 * n_anchors * c_f,
-        static_cast<const T*>(wf), xp, in_rows, c_f, d.ntot);
+    const int row_blocks = (in_rows + Cfg::BM - 1) / Cfg::BM;
+    if (gidx) {
+      gather_xproj_kernel<Cfg><<<row_blocks, kThreads, smem_g, stream>>>(
+          static_cast<const T*>(feat), gidx + (size_t)r0 * 4,
+          gwgt + (size_t)r0 * 4, static_cast<const T*>(wf), xp, in_rows, c_f,
+          d.ntot);
+    } else {
+      dim3 grid_x((d.ntot + Cfg::BN - 1) / Cfg::BN, row_blocks);
+      xproj_kernel<Cfg><<<grid_x, kThreads, smem_x, stream>>>(
+          static_cast<const T*>(feat) + (size_t)r0 * n_anchors * c_f,
+          static_cast<const T*>(wf), xp, in_rows, c_f, d.ntot);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
@@ -536,17 +663,23 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
 // xp scratch [xp_rows, sum(out_i)] f32, xp_rows >= n_anchors; wf
 // [sum(out_i), C]; wh the W_h^T of layers 1.. concatenated
 // ([out_i, out_(i-1)] each); wz, b [sum(out_i)] f32.
+// gidx [R, 4] i32 and gwgt [R, 4] f32, both or neither: the gathering form,
+// in which feat is the [*, C] table that gidx indexes (n_anchors must be 1).
 // Returns a cudaError_t (0 on success); 1000 + code for a bad argument.
 inline int mlp_forward(int dtype, const void* feat, const float* z,
                        const float* wk, float* out, float* xp, int xp_rows,
                        const void* wf, const void* wh, const float* wz,
                        const float* b, const int* widths, int n_layers,
                        int out_dim, int last_op, int R, int taps,
-                       int n_anchors, void* stream) {
+                       int n_anchors, void* stream,
+                       const int* gidx = nullptr,
+                       const float* gwgt = nullptr) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 1001;
   if (R < 1 || taps < 1 || out_dim < 1) return 1002;
   if (n_anchors < 1 || n_anchors > kMaxAnchors) return 1007;
   if (wk == nullptr && n_anchors != 1) return 1008;
+  if ((gidx == nullptr) != (gwgt == nullptr)) return 1010;
+  if (gidx != nullptr && (n_anchors != 1 || wk != nullptr)) return 1010;
   MlpDims d{};
   d.n_layers = n_layers;
   d.out_dim = out_dim;
@@ -568,10 +701,10 @@ inline int mlp_forward(int dtype, const void* feat, const float* z,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch<Bf16Cfg>(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, d, R,
-                           taps, n_anchors, s);
+                           taps, n_anchors, s, gidx, gwgt);
   if (dtype == 0)
     return launch<F32Cfg>(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, d, R,
-                          taps, n_anchors, s);
+                          taps, n_anchors, s, gidx, gwgt);
   return 1005;
 }
 

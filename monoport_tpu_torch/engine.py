@@ -1,10 +1,21 @@
-"""ReconEngine — the real-time frames on the card, frontal and rotated
-(port of ``monoport_tpu/engine.py``, march-pyramid paths).
+"""ReconEngine — the frame program on the card (port of
+``monoport_tpu/engine.py``): the real-time march-pyramid frames, frontal
+and rotated, the hierarchy frames (``mode='dense'`` and the coarse-volume
+``mode='ray'``) and clips (``frames``).
 
-One frame: netG ``HGFilter`` over the image, the volume-free
-``ray_pyramid`` (dense march, refines through the march levels and the
-windowed fine pass), normal shading, netC ``ResnetFilter`` with netG's last
-feature map as its prior, the colour query, and the display resize.
+One frame: netG ``HGFilter`` over the image, surface localization, normal
+shading, netC ``ResnetFilter`` with netG's last feature map as its prior,
+the colour query, and the display resize. Surface localization is one of
+
+* the volume-free ``ray_pyramid`` (dense march, refines through the march
+  levels and the windowed fine pass), when ``march_levels`` is set and the
+  frame may march (below);
+* else the hierarchical volume (``recon/hierarchy.py``: every level a
+  static batch of per-point queries through the per-point MLP kernel),
+  followed by ``depth_peel`` of the full volume (``mode='dense'``) or by
+  ``ray_refine`` of the coarse one (``mode='ray'``). Such a frame also
+  returns the volume (``sdf``) and the levels' candidate counts
+  (``recon_counts``; ``band_report``).
 
 The path is chosen on the host from the numpy calib, as the JAX engine
 does, so no per-frame device sync appears:
@@ -24,8 +35,10 @@ does, so no per-frame device sync appears:
   plan gives that level, or exact per-point where the plan gives none;
   the per-point colour query rides the last level's compaction.
 
-``mode='dense'``, ``frames()``, meshes and ``rotated.march=False`` (the
-hierarchy fallback) belong to a later slice and raise.
+With ``rotated.march=False`` a rotated calib takes the hierarchy instead
+of the march, and ``mode='ray'`` then refines with the anchored query of
+the single coarse-to-fine level. A mesh comes from a dense frame's ``sdf``
+through ``recon/marching.extract_mesh``.
 
 Dtype policy (JAX ``_cast`` / ``_feats_f32``): the backbones run in the
 compute dtype, their feature maps are upcast to f32 before the queries,
@@ -52,15 +65,13 @@ from .ops.constants import upload_async
 from .ops.cuda.fused_mlp import apply_mlp, pack_mlp_params
 from .ops.cuda.fused_ray_mlp import (apply_anchor, apply_ray,
                                      pack_ray_mlp_params)
-from .recon.depth_peel import SurfaceMaps, colorize, shade_normal, visualize
+from .recon.depth_peel import (SurfaceMaps, colorize, depth_peel,
+                               shade_normal, visualize)
 from .recon.hierarchy import HierarchicalRecon
 from .recon.ray_refine import (_axis_window, _compact_rays, _f32,
-                               _sample_grid, _valid_indices, ray_pyramid)
+                               _sample_grid, _valid_indices, ray_pyramid,
+                               ray_refine)
 from .weights import resolve_device
-
-DENSE_TODO = ("mode='dense', the hierarchy fallback of rotated frames "
-              "(rotated.march=False), frames() and meshes are not ported "
-              "yet (ROADMAP queue 1 item 8)")
 
 # Adaptive rotated-compaction budget rungs: frame(compact_hint=...) snaps
 # the hint up to one of these, so a bounded set of shapes ever runs.
@@ -78,9 +89,18 @@ def _snap_budget(hint: float, ceiling: float) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class RayCfg:
-    """Reconstruction-path shape (see the JAX ``RayCfg``). Only
-    ``mode='ray'`` with ``march_levels`` is ported.
+    """Reconstruction-path shape.
 
+    mode: 'dense' = the full hierarchical volume at the recon's last
+      resolution, depth-peeled (exact; the frame keeps 'sdf'); 'ray' = a
+      coarse surface and a per-ray fine pass at ``fine_res``: the
+      real-time path.
+    fine_res / taps / window: the fine ray lattice, its z-taps per ray
+      and the optional window^2 ray block over the subject's bbox.
+    march_levels: e.g. (33, 65): replace the coarse hierarchy and its
+      depth peel by the volume-free march pyramid on the frames that may
+      march; such a frame has no 'sdf' / 'recon_counts'. Needs
+      mode='ray' and direction='front'.
     use_ray_query: allow the ray-structured queries (shared gather and
     skip projections per ray). They are valid only for calibs with z-free
     image-plane rows; ``frame()`` checks per call. False sends every
@@ -98,8 +118,8 @@ class RotatedCfg:
     """Rotated-view (orbit camera / perspective net) path.
 
     march: rotated calibs take the march pyramid through exact per-point
-      queries (the march axis is the view ray for any calib). False asks
-      for the hierarchy fallback, which is not ported: such a frame raises.
+      queries (the march axis is the view ray for any calib). False
+      sends them down the hierarchy (the frame keeps 'sdf').
     compact: query only the coarse-valid rays of each refine level and
       only the valid texture pixels, padded to this fraction of the
       lattice; None = dense. This is the ceiling of the adaptive per-frame
@@ -145,8 +165,10 @@ class TextureCfg:
 
 @dataclasses.dataclass(frozen=True)
 class EngineCfg:
-    """render_size: output canvas; compute_dtype: backbone/MLP operand
-    dtype (the feature maps feeding the queries are upcast to f32)."""
+    """render_size: output canvas; direction: the view of the hierarchy
+    frames' depth peel ('front', 'back', 'left', 'right'); compute_dtype:
+    backbone/MLP operand dtype (the feature maps feeding the queries are
+    upcast to f32)."""
     render_size: int = 256
     direction: str = "front"
     compute_dtype: torch.dtype = torch.float32
@@ -174,17 +196,22 @@ class ReconEngine:
         cfg = config or EngineCfg()
         self.config = cfg
         self.device = resolve_device(device)
-        if cfg.ray.mode != "ray" or not cfg.ray.march_levels:
-            raise NotImplementedError(DENSE_TODO)
-        if cfg.direction != "front":
-            raise ValueError("march_levels requires the frontal viewer")
+        if cfg.ray.mode not in ("dense", "ray"):
+            raise ValueError(f"unknown mode {cfg.ray.mode!r}")
+        if cfg.ray.march_levels and (cfg.ray.mode != "ray"
+                                     or cfg.direction != "front"):
+            raise ValueError("march_levels requires mode='ray' and the "
+                             "frontal viewer")
         self.recon = recon or HierarchicalRecon()
+        self.mode = cfg.ray.mode
+        self.direction = cfg.direction
         self.compute_dtype = cfg.compute_dtype
         self.render_size = cfg.render_size
         self.fine_res = cfg.ray.fine_res
         self.ray_taps = cfg.ray.taps
         self.ray_window = cfg.ray.window
-        self.march_levels = tuple(cfg.ray.march_levels)
+        self.march_levels = (tuple(cfg.ray.march_levels)
+                             if cfg.ray.march_levels else None)
         # the compute-dtype copies of the nets (JAX ``_cast`` of params)
         self.netG = self._cast(netG)
         self.netC = self._cast(netC) if netC is not None else None
@@ -253,9 +280,14 @@ class ReconEngine:
 
     def _refine_pairs(self) -> list:
         """(rc, rf) resolution pairs of the refine levels a rotated frame
-        runs, in order: the march pyramid's chain."""
-        lv = list(self.march_levels) + [self.fine_res]
-        return list(zip(lv[:-1], lv[1:]))
+        runs, in order: the march pyramid's chain, or the single
+        coarse-to-fine pass of the hierarchy frame in ``mode='ray'``."""
+        if self.march_levels and self.config.rotated.march:
+            lv = list(self.march_levels) + [self.fine_res]
+            return list(zip(lv[:-1], lv[1:]))
+        if self.mode == "ray":
+            return [(self.recon.resolutions[-1], self.fine_res)]
+        return []
 
     def _rot_anchor_plan(self, calibs, image_h: int) -> tuple:
         """Host-side anchor count per refine level for a rotated calib (or
@@ -271,9 +303,9 @@ class ReconEngine:
         that would need K >= taps gains nothing and runs exact per-point
         (None). An int ``anchors`` pins every level."""
         rot = self.config.rotated
-        if not rot.anchors:
-            return ()
         pairs = self._refine_pairs()
+        if not rot.anchors or not pairs:
+            return ()
         if rot.anchors != "auto":
             return tuple(int(rot.anchors) for _ in pairs)
         persp = CN(self.netG.opt_net).projection == "perspective"
@@ -487,11 +519,15 @@ class ReconEngine:
         array (numpy; identity when None). -> {'depth', 'valid',
         'render_norm', 'mask'} (+ 'render_tex' with netC and image_c;
         + 'compact_dropped' on compacted frames: the dropped valid rays
-        of each refine level, then of the texture stage).
+        of each refine level, then of the texture stage; + 'sdf', the
+        volume, and 'recon_counts', the candidate voxels of each refine
+        level, on hierarchy frames).
 
         The path follows the calib: frontal calibs take the grid queries,
         in-plane rotations the ray taps, every other calib the rotated
-        path (module docstring).
+        path; a frame marches when ``march_levels`` is set and its calib
+        is frontal / in-plane or ``rotated.march`` is on, and takes the
+        hierarchy otherwise (module docstring).
 
         compact_hint: the window-valid fraction measured on an earlier
         frame (``compact_hint_from_valid``); rotated frames snap it up
@@ -506,8 +542,6 @@ class ReconEngine:
         cfg = self.config
         use_taps = self._calib_taps_ok(calib)
         use_grid = self._calib_grid_ok(calib)
-        if not use_taps and not cfg.rotated.march:
-            raise NotImplementedError(DENSE_TODO)
         compact = None if use_taps else cfg.rotated.compact
         if compact_hint is not None and compact is not None:
             compact = _snap_budget(compact_hint, compact)
@@ -528,24 +562,50 @@ class ReconEngine:
                         if k else None for k in rot_k]
         else:
             taps_fns = None
+        query_occ = self._query_occ_fn(feats_g, calib_t)
+        query_grid = (self._query_grid_fn(feats_g, calib_t)
+                      if use_grid else None)
         telemetry: list = []
         tex_state: list = []
-        want_state = (cfg.texture.reuse_compact and not use_taps
-                      and self.netC is not None and image_c is not None)
-        maps = ray_pyramid(
-            self._query_occ_fn(feats_g, calib_t), self.fine_res,
-            levels=self.march_levels, taps=self.ray_taps,
-            balance_value=self.recon.balance_value, b_min=self.recon.b_min,
-            b_max=self.recon.b_max, window=self.ray_window,
-            query_taps_fn=taps_fns,
-            query_grid_fn=(self._query_grid_fn(feats_g, calib_t)
-                           if use_grid else None),
-            march_taps=use_taps, compact=compact, telemetry=telemetry,
-            compact_state=tex_state if want_state else None,
-            device=self.device)
+        vol, counts = None, []
+        resolution = self.fine_res
+        if self.march_levels and (use_taps or cfg.rotated.march):
+            # volume-free: no hierarchy, no depth peel, no sdf
+            want_state = (cfg.texture.reuse_compact and not use_taps
+                          and self.netC is not None and image_c is not None)
+            maps = ray_pyramid(
+                query_occ, self.fine_res, levels=self.march_levels,
+                taps=self.ray_taps, balance_value=self.recon.balance_value,
+                b_min=self.recon.b_min, b_max=self.recon.b_max,
+                window=self.ray_window, query_taps_fn=taps_fns,
+                query_grid_fn=query_grid, march_taps=use_taps,
+                compact=compact, telemetry=telemetry,
+                compact_state=tex_state if want_state else None,
+                device=self.device)
+        else:
+            vol, counts = self.recon(query_occ, return_counts=True,
+                                     device=self.device)
+            if self.mode == "ray":
+                # one coarse-to-fine level: the rotated plan has one entry
+                if isinstance(taps_fns, list):
+                    taps_fns = taps_fns[-1]
+                maps = ray_refine(
+                    query_occ, vol, self.fine_res, taps=self.ray_taps,
+                    balance_value=self.recon.balance_value,
+                    b_min=self.recon.b_min, b_max=self.recon.b_max,
+                    direction=self.direction, window=self.ray_window,
+                    query_taps_fn=taps_fns, query_grid_fn=query_grid)
+            else:
+                resolution = self.recon.resolutions[-1]
+                maps = depth_peel(vol, self.direction,
+                                  self.recon.balance_value)
         render_norm, mask = visualize(shade_normal(maps), self.render_size)
         out = {"depth": maps.depth, "valid": maps.valid,
                "render_norm": render_norm, "mask": mask}
+        if vol is not None:
+            out["sdf"] = vol
+        if counts:
+            out["recon_counts"] = torch.stack(counts)
         if self.netC is not None and image_c is not None:
             image_c = image_c.to(device=self.device, dtype=dt)
             # the f32 prior promotes the concatenated maps to f32, as in
@@ -556,11 +616,11 @@ class ReconEngine:
                 feats_c = self._feats_f32(feats_c)
             if use_grid:
                 tex = self._texture_canvas(
-                    maps, self.fine_res,
+                    maps, resolution,
                     color_grid=self._grid_color_fn(feats_c, calib_t))
             else:
                 tex = self._texture_canvas(
-                    maps, self.fine_res,
+                    maps, resolution,
                     query_color=self._query_color_fn(feats_c, calib_t),
                     compact=compact, telemetry=telemetry,
                     reuse=tex_state[0] if tex_state else None)
@@ -569,6 +629,29 @@ class ReconEngine:
         if telemetry:
             out["compact_dropped"] = torch.stack(telemetry)
         return out
+
+    def band_report(self, out: dict) -> str:
+        """Candidate counts of the hierarchy's refine levels against their
+        budgets from a frame's output (fetches ``recon_counts``). With
+        select='uncertain' an overflow drops the most confident voxels
+        first, but it must be visible."""
+        if "recon_counts" not in out:
+            return "recon band: no refine levels"
+        counts = out["recon_counts"].detach().cpu().tolist()
+        truncated = self.recon.select != "uncertain"
+        parts, overflow = [], False
+        for res, c, b in zip(self.recon.resolutions[1:], counts,
+                             self.recon.budgets[1:]):
+            flag = ""
+            if c > b:
+                overflow = True
+                flag = " OVERFLOW(TRUNCATED)" if truncated else " OVERFLOW"
+            parts.append(f"{res}^3: {int(c)}/{b}{flag}")
+        head = "recon band candidates/budget — "
+        if overflow:
+            head = ("recon band OVER BUDGET (raise recon.budgets or keep "
+                    "select='uncertain' for graceful degradation) — ")
+        return head + ", ".join(parts)
 
     def compact_report(self, out: dict) -> str:
         """Dropped-ray counts of the rotated compaction budgets from a
@@ -599,5 +682,27 @@ class ReconEngine:
         window_frac = (self.fine_res / float(w)) ** 2
         return float(valid_fraction) * window_frac * safety
 
-    def frames(self, *args, **kwargs):
-        raise NotImplementedError(DENSE_TODO)
+    def frames(self, images_g: torch.Tensor,
+               images_c: Optional[torch.Tensor] = None, calibs=None) -> dict:
+        """A clip: images [B, H, W, 3], calibs a host [B, 4, 4] array
+        (identity when None) -> the outputs of ``frame`` with a leading
+        clip axis, in clip order.
+
+        The kernels take one frame a launch, so a clip is a loop over its
+        frames, and each frame takes the path of its own calib: one
+        rotated frame does not take the clip off the grid path (the JAX
+        engine groups a clip by path for the same end). Keys are those
+        every frame has: a rotated frame's ``compact_dropped`` goes when
+        the clip also holds frontal frames."""
+        b = images_g.shape[0]
+        if calibs is None:
+            calibs = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))
+        if isinstance(calibs, torch.Tensor):
+            calibs = calibs.detach().cpu().numpy()
+        calibs = np.asarray(calibs, np.float32).reshape(b, 1, 4, 4)
+        outs = [self.frame(images_g[i:i + 1],
+                           None if images_c is None else images_c[i:i + 1],
+                           calibs[i]) for i in range(b)]
+        keys = set.intersection(*(set(o) for o in outs))
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]
+                if k in keys}

@@ -1,16 +1,22 @@
-"""The real-time operating point and the full-width golden frame.
+"""The operating points and the full-width golden frames.
 
 ``rtl_config`` builds the frontal real-time operating point of
 ``configs/rtl.yaml`` in code (the card machine has no PyYAML):
 ``mode='ray'``, ``fine_res`` 257, 6 taps, a 192^2 window, march levels
-(33, 65), bf16 compute by default.
+(33, 65), bf16 compute by default. ``quality_config`` builds the exact
+full-volume profile of ``configs/quality.yaml``: ``mode='dense'``, the
+hierarchy (17, 33, 65, 129, 257) with budgets (0, 16384, 65536, 131072,
+262144).
 
 ``data/frame_golden.npz`` holds the JAX engine's f32 frame at that point
 on the committed weights, for the held-out capsule render of
 ``tests/test_trained_pipeline.py``; ``data/frame_golden_rotated.npz`` the
 same image seen by the orbit camera at ``ROTATED_POSE`` (``rotated_calib``),
 the rotated defaults of ``RotatedCfg`` / ``TextureCfg``, with the anchor
-plan and ``compact_dropped`` of that frame (both written by
+plan and ``compact_dropped`` of that frame; ``data/frame_golden_dense.npz``
+the frontal frame of ``quality_config`` with its ``recon_counts`` and its
+257^3 volume ``sdf`` at every ``SDF_STRIDE``-th voxel (65^3), without the
+image, which is the frontal golden's (all written by
 ``python tests/test_torch_frame_golden.py --write``). ``compare_to_golden``
 holds a port frame to a golden with fractions, not a max error: the
 4-stack backbone sums in another order on each device, and a crossing
@@ -34,7 +40,12 @@ from .render.camera import orbit_extrinsic
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "frame_golden.npz")
 GOLDEN_ROTATED = os.path.join(os.path.dirname(__file__), "data",
                               "frame_golden_rotated.npz")
+GOLDEN_DENSE = os.path.join(os.path.dirname(__file__), "data",
+                            "frame_golden_dense.npz")
 ROTATED_POSE = (20.0, 10.0)          # orbit yaw, pitch in degrees
+SDF_STRIDE = 4                       # the dense golden's volume subsampling
+QUALITY_RESOLUTIONS = (17, 33, 65, 129, 257)
+QUALITY_BUDGETS = (0, 16384, 65536, 131072, 262144)
 
 
 class Limits(NamedTuple):
@@ -60,6 +71,11 @@ BF16_LIMITS = Limits(0.01, 0.6, 0.05, 2e-3, 0.995)
 # on an H100: depth 0.290 fine voxels, render_norm 0.0309, render_tex
 # 8.1e-4; 1 - IOU 0.22%, held to 1%)
 BF16_ROTATED_LIMITS = Limits(0.01, 0.6, 0.06, 2e-3, 0.995)
+# the bf16 dense frame (the depth-peeled 257^3 hierarchy) against its f32
+# golden, set the same way. A peeled depth interpolates two voxels, so it
+# is coarser than a ray frame's (measured on an H100: depth 1.088 voxels,
+# render_norm 0.0599, render_tex 1.13e-3; 1 - IOU 0.12%, held to 1%)
+BF16_DENSE_LIMITS = Limits(0.01, 2.0, 0.12, 2.5e-3, 0.995)
 
 
 def rtl_config(compute_dtype: torch.dtype = torch.bfloat16):
@@ -75,6 +91,19 @@ def rtl_config(compute_dtype: torch.dtype = torch.bfloat16):
                     ray=RayCfg(mode="ray", fine_res=257, taps=6, window=192,
                                march_levels=tuple(c.recon.march_levels)))
     return recon, cfg
+
+
+def quality_config(compute_dtype: torch.dtype = torch.float32):
+    """(HierarchicalRecon, EngineCfg) of the exact full-volume profile."""
+    c = get_cfg_defaults()
+    recon = HierarchicalRecon(resolutions=QUALITY_RESOLUTIONS,
+                              budgets=QUALITY_BUDGETS,
+                              boundary_tau=c.recon.boundary_tau,
+                              dilate=c.recon.dilate,
+                              balance_value=c.recon.balance_value,
+                              select="uncertain")
+    return recon, EngineCfg(compute_dtype=compute_dtype,
+                            ray=RayCfg(mode="dense"))
 
 
 def rotated_calib(yaw_deg: float = ROTATED_POSE[0],
@@ -122,4 +151,21 @@ def compare_to_golden(out: dict, golden: dict,
                      and all(res[f"{k}_within"] >= limits.within_min
                              for k in errs)
                      and all(np.isfinite(get(k)).all() for k in errs))
+    return res
+
+
+def compare_sdf(out: dict, golden: dict, atol: float = 2e-3,
+                within_min: float = F32_LIMITS.within_min) -> dict:
+    """Agreement of a dense frame's volume with the golden's subsampled
+    one: occupancy within ``atol`` on at least ``within_min`` of the
+    voxels (a voxel whose band membership flips holds the interpolated
+    value in one frame and the queried one in the other)."""
+    k = SDF_STRIDE
+    err = np.abs(out["sdf"][::k, ::k, ::k].detach().float().cpu().numpy()
+                 - golden["sdf"])
+    res = {"sdf_within": float((err <= atol).mean()),
+           "sdf_p995_err": float(np.quantile(err, 0.995)),
+           "sdf_max_err": float(err.max())}
+    res["ok"] = bool(res["sdf_within"] >= within_min
+                     and np.isfinite(err).all())
     return res

@@ -204,14 +204,18 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
                   feat: torch.Tensor, n_rays: int, taps: int,
                   z: torch.Tensor | None = None,
                   wk: torch.Tensor | None = None,
-                  n_anchors: int | None = None) -> torch.Tensor:
-    """Launch one of the three C entry points on ``feat``'s device and
-    stream: ``feat`` [n_rays * K, widths[0]] in the compute dtype, ``z``
+                  n_anchors: int | None = None,
+                  gather: tuple | None = None) -> torch.Tensor:
+    """Launch one of the C entry points on ``feat``'s device and stream:
+    ``feat`` [n_rays * K, widths[0]] in the compute dtype, ``z``
     [n_rays, taps] f32, ``wk`` [n_rays, taps, K] f32 -> [n_rays, taps,
-    out_dim] f32. Raises when the launch is refused."""
+    out_dim] f32. ``gather`` = (idx [n_rays, 4] i32, wgt [n_rays, 4] f32):
+    ``feat`` is then the [H*W, widths[0]] table those index. Raises when
+    the launch is refused."""
     dev = feat.device
-    for name, t in (("z", z), ("w_taps", wk), ("wf", p.wf), ("wh", p.wh),
-                    ("wz", p.wz), ("b", p.b)):
+    gidx, gwgt = gather or (None, None)
+    for name, t in (("z", z), ("w_taps", wk), ("idx", gidx), ("wgt", gwgt),
+                    ("wf", p.wf), ("wh", p.wh), ("wz", p.wz), ("b", p.b)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the input on {dev}")
     if p.dtype not in (torch.bfloat16, torch.float32):
@@ -229,6 +233,8 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
             (ptr, feat.data_ptr())]
     if wk is not None:
         args.append((ptr, wk.data_ptr()))
+    if gather is not None:
+        args += [(ptr, gidx.data_ptr()), (ptr, gwgt.data_ptr())]
     if z is not None:
         args.append((ptr, z.data_ptr()))
     args += [(ptr, out.data_ptr()), (ptr, xp.data_ptr()), (i32, xp_rows),

@@ -1,4 +1,4 @@
-"""Image resampling as dense per-axis matrices (port of
+"""Image and volume resampling as dense per-axis matrices (port of
 ``monoport_tpu/ops/resize.py``).
 
 The interpolation matrices are built in numpy exactly as the JAX package
@@ -94,6 +94,17 @@ def upsample2x_bicubic(x: torch.Tensor) -> torch.Tensor:
     """2x bicubic upsample of NHWC, align_corners=True."""
     _, h, w, _ = x.shape
     return interpolate_2d(x, (h * 2, w * 2), "bicubic", align_corners=True)
+
+
+def interpolate_3d(vol: torch.Tensor, size: tuple[int, int, int],
+                   mode: str = "bilinear",
+                   align_corners: bool = True) -> torch.Tensor:
+    """Separable volume resize of [..., D, H, W] grids (exact on nested
+    2^k+1 grids under align_corners=True): the hierarchical evaluator's
+    upsampling."""
+    vol = resize_axis(vol, -3, size[0], mode, align_corners)
+    vol = resize_axis(vol, -2, size[1], mode, align_corners)
+    return resize_axis(vol, -1, size[2], mode, align_corners)
 
 
 def avg_pool_2d(x: torch.Tensor, window: int = 2,

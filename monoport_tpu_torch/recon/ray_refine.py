@@ -1,21 +1,21 @@
-"""Per-ray surface localization — the march pyramid of the real-time
-frames, frontal and rotated (port of ``monoport_tpu/recon/ray_refine.py``
-without ``ray_refine``, the fine pass over a coarse volume, which comes
-with the dense/hierarchy slice: ROADMAP queue 1 item 8).
+"""Per-ray surface localization: the march pyramid of the real-time
+frames, frontal and rotated, and the fine pass over a coarse volume (port
+of ``monoport_tpu/recon/ray_refine.py``).
 
-``ray_pyramid`` runs a dense first-crossing march at a coarse level, then
+``ray_refine`` peels a coarse hierarchy volume into per-ray maps and
+refines them at ``fine_res``. ``ray_pyramid`` needs no volume: it runs a dense first-crossing march at a coarse level, then
 refines through the remaining levels and finally ``fine_res`` inside an
 optional subject-bbox window. Each pass queries T z-taps per ray through
 the grid-structured query (separable sampling + the fused ray MLP), a
 ray-structured query (shared-feature taps, or the anchored query of a
 rotated view), or a per-point ``query_fn``. All of it is 2D map work on
-``[R, R]`` tensors; no 3D volume exists.
+``[R, R]`` tensors; the pyramid holds no 3D volume.
 
 Rotated views lose the outer-product lattice, so their refine levels are
 compacted: only the coarse-valid rays are queried, padded to a static
 budget. Shapes stay static and nothing here synchronises the stream: the
-valid rays are selected with a cumulative sum and a scatter (no
-``nonzero``), and the dropped-ray counts stay device scalars.
+valid rays are selected with ``ops/compaction.select_k`` (no ``nonzero``),
+and the dropped-ray counts stay device scalars.
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..ops.compaction import select_k
 from ..ops.constants import device_constant, float_array
 from ..ops.resize import interpolate_2d
-from .depth_peel import SurfaceMaps
+from .depth_peel import SurfaceMaps, depth_peel
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -128,17 +129,9 @@ def _query_lattice(query_fn, query_taps_fn, query_grid_fn, xw1, yw1, wz):
 
 def _valid_indices(flat_valid: torch.Tensor, budget: int) -> torch.Tensor:
     """The first ``budget`` indices at which ``flat_valid`` [n] is set,
-    ascending, filled with n (``flatnonzero`` with a static size). A
-    cumulative sum ranks the set entries and a scatter places them, so no
+    ascending, filled with n (``flatnonzero`` with a static size); no
     count reaches the host."""
-    n = flat_valid.shape[0]
-    ar = torch.arange(n, device=flat_valid.device)
-    rank = torch.cumsum(flat_valid, dim=0) - 1
-    # unset entries and those beyond the budget land in a spare last slot
-    slot = torch.where(flat_valid & (rank < budget), rank,
-                       torch.full_like(rank, budget))
-    idx = torch.full((budget + 1,), n, dtype=ar.dtype, device=ar.device)
-    return idx.scatter(0, slot, ar)[:budget]
+    return select_k(flat_valid, budget)[0]
 
 
 def _scatter_rows(init: torch.Tensor, idx: torch.Tensor,
@@ -212,6 +205,24 @@ def _refine_core_compact(query_fn: Callable | None, depth_f, valid_f, xw1,
     valid = torch.where(queried, hit_full, valid_f) & valid_f
     return _normals_from_maps(z_full, dvdz_full, nz_full, valid, h, w,
                               spacing)
+
+
+def ray_refine(query_fn: Callable | None, vol_coarse: torch.Tensor,
+               fine_res: int, taps: int = 6, balance_value: float = 0.5,
+               b_min=(-1.0, -1.0, -1.0), b_max=(1.0, 1.0, 1.0),
+               direction: str = "front", window: int | None = None,
+               query_taps_fn: Callable | None = None,
+               query_grid_fn: Callable | None = None) -> SurfaceMaps:
+    """Coarse volume -> SurfaceMaps at ``fine_res`` ray resolution (depth
+    in fine voxels along the viewing axis, ``depth_peel``'s convention):
+    the coarse volume is peeled into per-ray maps and refined by
+    ``refine_from_maps`` (which documents ``window`` and the queries)."""
+    coarse = depth_peel(vol_coarse, direction, balance_value)
+    return refine_from_maps(query_fn, coarse, vol_coarse.shape[0], fine_res,
+                            taps=taps, balance_value=balance_value,
+                            b_min=b_min, b_max=b_max, window=window,
+                            query_taps_fn=query_taps_fn,
+                            query_grid_fn=query_grid_fn)
 
 
 def _compact_rays(compact: float | None, h: int, w: int) -> int | None:

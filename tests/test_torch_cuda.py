@@ -1,8 +1,9 @@
-"""PyTorch port, on the card: the three CUDA MLP kernels (ray, anchored,
-per-point) against their plain versions (f32 atol 2e-5 / rtol 1e-4, bf16
-atol 2e-2), at the published head widths and a narrow test head, T in
-{1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, and a scratch
-small enough that the launcher walks the rays in several chunks.
+"""PyTorch port, on the card: the four CUDA MLP kernels (ray, anchored,
+per-point, gathering ray) against their plain versions (f32 atol 2e-5 /
+rtol 1e-4, bf16 atol 2e-2), at the published head widths and a narrow test
+head, T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
+beyond the image for the gather, and a scratch small enough that the
+launcher walks the rays in several chunks.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from monoport_tpu_torch.models.heads import SurfaceClassifier
+from monoport_tpu_torch.ops.cuda import fused_gather_mlp as tgather
 from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
 from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
 
@@ -158,3 +160,50 @@ def test_anchor_kernel_rejects_bad_shapes(card):
     with pytest.raises(ValueError):          # more anchors than the kernel takes
         tray.apply_anchor(p, torch.zeros(1, 4, 9, p.c_f, device=card),
                           torch.zeros(1, 4, 6, 9, device=card), z)
+
+
+def _gather_inputs(card, p, rays: int, taps: int, hw=(24, 20), seed=8):
+    rng = np.random.RandomState(seed)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    return (to(rng.randn(1, *hw, p.c_f)),
+            to(rng.uniform(-1.2, 1.2, (1, rays, 2))),    # some taps outside
+            to(rng.uniform(-1.3, 1.3, (1, rays, taps))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(HEADS))
+def test_gather_kernel_matches_plain(card, name, dtype):
+    p = tray.pack_ray_mlp_params(_head(name), dtype=dtype, device=card)
+    for taps in (1, 6):
+        fmap, uv, z = _gather_inputs(card, p, 301, taps)
+        before = tgather.apply_gather_ray.launches
+        got = tgather.apply_gather_ray(p, fmap, uv, z)
+        torch.cuda.synchronize()
+        assert tgather.apply_gather_ray.launches == before + 1
+        assert got.shape == (1, 301, taps, p.out_dim)
+        torch.testing.assert_close(
+            got, tgather.apply_gather_plain(p, fmap, uv, z), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_gather_kernel_chunked_equals_one_chunk(card, monkeypatch):
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
+                                 device=card)
+    fmap, uv, z = _gather_inputs(card, p, 1500, 6)
+    whole = tgather.apply_gather_ray(p, fmap, uv, z)
+    monkeypatch.setattr(tray, "XP_SCRATCH_BYTES",
+                        4 * sum(p.widths[1:]) * 700)
+    parts = tgather.apply_gather_ray(p, fmap, uv, z)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(whole, parts, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_rejects_a_batch(card):
+    p = tray.pack_ray_mlp_params(_head("small"), dtype=torch.float32,
+                                 device=card)
+    fmap, uv, z = _gather_inputs(card, p, 8, 2)
+    with pytest.raises(ValueError, match="batch 1"):
+        tgather.apply_gather_ray(p, fmap.repeat(2, 1, 1, 1),
+                                 uv.repeat(2, 1, 1), z.repeat(2, 1, 1))

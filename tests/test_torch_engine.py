@@ -1,7 +1,7 @@
 """PyTorch port, engine: ReconEngine.frame against monoport_tpu's engine on
 the small frontal frame (render_size 32, fine_res 33, 4 taps, march
 (9, 17), a 24-ray window) with the small nets of tests/test_grid_query.py,
-f32 on the CPU; plus the device rule and the paths that raise. The
+f32 on the CPU; plus the device rule and a run of every other path. The
 rotated and in-plane-rotated frames are in tests/test_torch_rotated.py.
 
 Tolerances: depth 2e-4 fine voxels and render_norm/render_tex 2e-3, on
@@ -119,10 +119,27 @@ def test_engine_without_device_needs_cuda(setup, monkeypatch):
         weights.load_default_networks()
 
 
-def test_other_paths_raise_naming_their_roadmap_item(setup):
-    """Rotated and in-plane-rotated calibs run; the dense mode, the
-    hierarchy fallback of rotated frames, clips and the volume evaluator
-    raise and name their slice."""
+def test_other_paths_raise_naming_their_roadmap_item():
+    """What the port still lacks raises at construction and names its
+    ROADMAP queue: the backbone's other norms and downsamplers, and the
+    soft-onehot z features."""
+    from monoport_tpu_torch.models.backbones.hourglass import HGFilter
+    from monoport_tpu_torch.models.normalizers.depth_normalizer import (
+        DepthNormalizer)
+
+    for make in (lambda: HGFilter(num_stack=1, norm="batch"),
+                 lambda: HGFilter(num_stack=1, hg_down="conv64"),
+                 lambda: DepthNormalizer(soft_onehot=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            make()
+
+
+def test_dense_hierarchy_and_clip_paths_run(setup):
+    """Rotated and in-plane-rotated calibs run, and so do the paths that
+    once raised and named their slice: the hierarchy fallback of rotated
+    frames, the dense mode, clips and the volume evaluator (held to the
+    JAX package in tests/test_torch_dense_engine.py and
+    tests/test_torch_hierarchy.py)."""
     eng = _port_engine(setup)
     image = torch.from_numpy(setup["image"])
     rotated = np.eye(4, dtype=np.float32)[None]
@@ -137,11 +154,17 @@ def test_other_paths_raise_naming_their_roadmap_item(setup):
         assert torch.isfinite(out["render_tex"]).all()
     fallback = _port_engine(setup, rotated=RotatedCfg(march=False))
     assert fallback.frame(image, image)["depth"].shape == (33, 33)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fallback.frame(image, image, rotated)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _port_engine(setup, mode="dense")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.frames(image)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        HierarchicalRecon()(None)
+    out = fallback.frame(image, image, rotated)       # the hierarchy
+    assert out["depth"].shape == (33, 33)
+    assert out["sdf"].shape == (17, 17, 17)
+    assert out["recon_counts"].shape == (1,)
+    dense = _port_engine(setup, mode="dense", march_levels=None)
+    out = dense.frame(image, image)
+    assert out["depth"].shape == (17, 17) and out["sdf"].shape == (17,) * 3
+    assert out["render_tex"].shape == (32, 32, 3)
+    assert "17^3" in dense.band_report(out)
+    clip = eng.frames(torch.cat([image, image]))
+    assert clip["depth"].shape == (2, 33, 33) and "render_tex" not in clip
+    vol = HierarchicalRecon(resolutions=(5, 9), budgets=(0, 1024))(
+        lambda pts: torch.sigmoid(4.0 - 8.0 * pts.norm(dim=-1, keepdim=True)))
+    assert vol.shape == (9, 9, 9) and 0.0 < float(vol.mean()) < 1.0

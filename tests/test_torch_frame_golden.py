@@ -9,9 +9,15 @@ image, calib, depth, valid, render_norm and render_tex as f32: the frontal
 frame (identity calib) in ``monoport_tpu_torch/data/frame_golden.npz``,
 the rotated frame (the orbit camera at ``frame_check.ROTATED_POSE``, the
 rotated defaults of the engine) in ``.../frame_golden_rotated.npz``, with
-its anchor plan (0 = a per-point level) and ``compact_dropped``.
+its anchor plan (0 = a per-point level) and ``compact_dropped``; the dense
+frame (``frame_check.quality_config``: ``mode='dense'``, the 257^3
+hierarchy, identity calib) in ``.../frame_golden_dense.npz``, with
+``recon_counts`` and ``sdf`` at every fourth voxel and without the image
+(it is the frontal golden's). ``--write`` takes the names of the goldens
+to write (``frontal``, ``rotated``, ``dense``; all three by default; the
+dense frame alone takes about half a minute).
 
-The slow tests run the port's CPU frames on the stored image and hold them
+The slow tests run the port's CPU frames, full width, on the stored image and hold them
 to the goldens with ``frame_check.compare_to_golden``; ``chip_smoke.py``
 does the same with the card's frames."""
 
@@ -28,7 +34,9 @@ from monoport_tpu_torch import frame_check  # noqa: E402
 
 
 def write_golden(path: str = frame_check.GOLDEN,
-                 rotated_path: str = frame_check.GOLDEN_ROTATED) -> dict:
+                 rotated_path: str = frame_check.GOLDEN_ROTATED,
+                 dense_path: str = frame_check.GOLDEN_DENSE,
+                 names=("frontal", "rotated", "dense")) -> dict:
     import jax
     import jax.numpy as jnp
 
@@ -59,16 +67,30 @@ def write_golden(path: str = frame_check.GOLDEN,
         march_levels=tuple(cfg.recon.march_levels),
         compute_dtype=jnp.float32, use_pallas=False))
     goldens = {}
-    for name, target, calib in (
-            ("frontal", path, np.eye(4, dtype=np.float32)[None]),
-            ("rotated", rotated_path, frame_check.rotated_calib())):
-        out = eng.frame(params_g, jnp.asarray(image), params_c,
-                        jnp.asarray(image), calib)
+    dense = ReconEngine(netG, netC, recon=HierarchicalRecon(
+        resolutions=frame_check.QUALITY_RESOLUTIONS,
+        budgets=frame_check.QUALITY_BUDGETS, select="uncertain"),
+        config=EngineCfg.flat(mode="dense", compute_dtype=jnp.float32,
+                              use_pallas=False))
+    eye = np.eye(4, dtype=np.float32)[None]
+    for name, target, calib, engine in (
+            ("frontal", path, eye, eng),
+            ("rotated", rotated_path, frame_check.rotated_calib(), eng),
+            ("dense", dense_path, eye, dense)):
+        if name not in names:
+            continue
+        out = engine.frame(params_g, jnp.asarray(image), params_c,
+                           jnp.asarray(image), calib)
         golden = {"image": image, "calib": calib,
                   "depth": np.asarray(out["depth"], np.float32),
                   "valid": np.asarray(out["valid"], bool),
                   "render_norm": np.asarray(out["render_norm"], np.float32),
                   "render_tex": np.asarray(out["render_tex"], np.float32)}
+        if name == "dense":
+            k = frame_check.SDF_STRIDE
+            del golden["image"]
+            golden["recon_counts"] = np.asarray(out["recon_counts"], np.int32)
+            golden["sdf"] = np.asarray(out["sdf"], np.float32)[::k, ::k, ::k]
         if name == "rotated":
             plan = eng._rot_anchor_plan(calib, image.shape[1])
             golden["anchor_plan"] = np.asarray([k or 0 for k in plan],
@@ -80,12 +102,12 @@ def write_golden(path: str = frame_check.GOLDEN,
     return goldens
 
 
-def _cpu_frame(golden: dict) -> dict:
+def _cpu_frame(golden: dict, config=frame_check.rtl_config) -> dict:
     from monoport_tpu_torch.engine import ReconEngine
     from monoport_tpu_torch.weights import load_default_networks
 
     netG, netC = load_default_networks(device="cpu")
-    recon, cfg = frame_check.rtl_config(torch.float32)
+    recon, cfg = config(torch.float32)
     eng = ReconEngine(netG, netC, recon=recon, config=cfg, device="cpu")
     image = torch.from_numpy(golden["image"])
     # the CPU frame's depth agreement depends on torch's thread count (its
@@ -121,6 +143,25 @@ def test_cpu_rotated_frame_matches_golden():
                                   golden["compact_dropped"])
 
 
+@pytest.mark.slow
+def test_cpu_dense_frame_matches_golden():
+    """The 257^3 hierarchy frame on the CPU (about a minute; the JAX
+    golden itself takes half a minute to write): full size, so kept out
+    of Tier-1 like the two above."""
+    golden = frame_check.load_golden(frame_check.GOLDEN_DENSE)
+    golden["image"] = frame_check.load_golden()["image"]
+    eng, out = _cpu_frame(golden, frame_check.quality_config)
+    res = frame_check.compare_to_golden(out, golden)
+    assert res["ok"], res
+    sdf = frame_check.compare_sdf(out, golden)
+    assert sdf["ok"], sdf
+    assert out["sdf"].shape == (257, 257, 257)
+    counts = out["recon_counts"].numpy()
+    # a voxel on the band's edge may fall on either side of it
+    np.testing.assert_allclose(counts, golden["recon_counts"], rtol=2e-3)
+    assert "OVER" not in eng.band_report(out)
+
+
 def _synthetic_frame():
     """A 10x10-pixel subject on the golden's canvases: small against the
     canvas, as the real subject is (6% of it)."""
@@ -153,10 +194,12 @@ def test_compare_to_golden_counts_over_the_subject(fault):
 
 
 if __name__ == "__main__":
-    if "--write" not in sys.argv:
-        sys.exit("usage: python tests/test_torch_frame_golden.py --write")
-    for name, g in write_golden().items():
+    if sys.argv[1:2] != ["--write"]:
+        sys.exit("usage: python tests/test_torch_frame_golden.py --write "
+                 "[frontal] [rotated] [dense]")
+    chosen = tuple(sys.argv[2:]) or ("frontal", "rotated", "dense")
+    for name, g in write_golden(names=chosen).items():
         print(name, {k: (v.shape, str(v.dtype)) for k, v in g.items()},
               "valid fraction", float(g["valid"].mean()),
-              {k: g[k].tolist() for k in ("anchor_plan", "compact_dropped")
-               if k in g})
+              {k: g[k].tolist() for k in ("anchor_plan", "compact_dropped",
+                                          "recon_counts") if k in g})
