@@ -11,9 +11,12 @@ non-zero, printing no result, without either. Phases (one JSON line each):
 3. kernel: each of the four kernels against its plain version on the
    card, at every shape a frame of phases 4-8 or the gather A/B launches
    it on (the hierarchy levels' come from ``frame_check``'s budgets), in
-   bf16 and f32, with times (CUDA events)
-   and the bound (the larger of operations over the card's peak for their
-   type and bytes over its memory rate, H100 SXM data-sheet peaks);
+   bf16 and f32, with the device code's route, the maximum and the 99.9th
+   percentile of the error, times (CUDA events) and the bound (the larger
+   of operations over the card's peak for their type and bytes over its
+   memory rate, H100 SXM data-sheet peaks); the per-point kernel's bf16
+   rows also time its ring alone (``stream_wgmma``: the L2 floor of its
+   tiling) and give the L2 read rate that implies;
 4. frame: the committed netG + netC at full width through ReconEngine at
    the real-time operating point, bf16, a few frontal frames timed; the
    launch counts are zeroed just before and read just after, and must be
@@ -32,7 +35,9 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    (``mode='dense'``, the 257^3 hierarchy), frontal calib, bf16 timed and
    f32 once: the per-point MLP once for every hierarchy level and the ray
    MLP once for the frontal colour, no stream sync, ``recon_counts``
-   against the budgets (``band_report``), the profile, the frames held
+   against the budgets (``band_report``), the profile (one wgmma kernel a
+   per-point call, and the projection pass of the ray MLP's colour call
+   only), the frames held
    to the dense JAX golden, its subsampled ``sdf`` and ``recon_counts``
    included, and to the same frames run through the plain versions of the
    kernels on the card (f32: ``recon_counts`` equal);
@@ -78,6 +83,11 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {"f32": {"atol": 2e-5, "rtol": 1e-4}, "bf16": {"atol": 2e-2, "rtol": 0.0}}
 FRAMES = 5
+# the device code behind each kernel and dtype: the per-point MLP's bf16
+# route is its own wgmma kernel, every other row runs csrc/mlp_tiles.cuh
+# (mma.sync tensor cores in bf16, plain FMA in f32)
+ROUTES = {("fused_mlp", "bf16"): "sm90_wgmma"}
+TILES_ROUTE = {"bf16": "tiles_mma_sync", "f32": "tiles_fma"}
 
 
 def emit(obj: dict) -> None:
@@ -254,6 +264,7 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
             want = plain(p, *args)
             torch.cuda.synchronize()
             err = (got - want).abs()
+            p999 = float(torch.quantile(err.flatten().float(), 0.999).item())
             tol = TOL[dname]
             ok = bool(torch.all(err <= tol["atol"] + tol["rtol"]
                                 * want.abs()).item()
@@ -263,7 +274,10 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
             reps = 20 if dname == "bf16" else 5
             row = {"phase": "kernel", "kernel": kernel, "shape": name,
                    "dtype": dname, "rays": rays, "taps": taps, "anchors": k,
-                   "c_in": p.c_f, "max_abs_err": float(err.max().item()),
+                   "c_in": p.c_f,
+                   "route": ROUTES.get((kernel, dname), TILES_ROUTE[dname]),
+                   "max_abs_err": float(err.max().item()),
+                   "p999_abs_err": p999,
                    "atol": tol["atol"], "rtol": tol["rtol"], "ok": ok,
                    "ms": cuda_ms(lambda: fn(p, *args), reps),
                    "plain_ms": cuda_ms(lambda: plain(p, *args), reps),
@@ -271,12 +285,39 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
                    "bound_ms": max(t_ops, t_byte) * 1e3,
                    "bound_by": "operations" if t_ops >= t_byte else "bytes",
                    "library_ms": None}
+            if row["route"] == "sm90_wgmma":
+                xr = tmlp.pad_feat(p, args[0]).reshape(rays, -1).contiguous()
+                row["l2_floor_ms"] = cuda_ms(lambda: tmlp.stream_wgmma(p, xr),
+                                             reps)
+                row["l2_read_tb_s"] = (tmlp.streamed_bytes(p, rays)
+                                       / row["l2_floor_ms"] / 1e9)
             emit(row)
             if not ok:
                 fail(f"{kernel} {name} {dname}: the kernel disagrees with "
                      f"its plain version (max abs err {row['max_abs_err']})")
             rows.append(row)
     return rows
+
+
+def ray_chunks(net, rays: int, taps: int) -> int:
+    """The chunks one ray-MLP call of ``net``'s head walks (one
+    ``xproj_kernel`` and one ``mlp_kernel`` launch each): the launcher's
+    rule in ``csrc/mlp_tiles.cuh`` (``launch``) for its bounded scratch,
+    whole waves of 64-row blocks where one fits."""
+    import torch
+
+    from monoport_tpu_torch.ops.cuda.fused_ray_mlp import XP_SCRATCH_BYTES
+
+    ntot = sum(-(-lin.weight.shape[0] // 32) * 32
+               for lin in net.surface_classifier.layers())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = max(1, XP_SCRATCH_BYTES // (4 * ntot))
+    wave = sms * 64 // taps
+    if chunk >= rays:
+        return 1
+    if wave >= 1 and chunk >= wave:
+        chunk -= chunk % wave
+    return -(-rays // chunk)
 
 
 def find_syncs(fn) -> list[str]:
@@ -306,9 +347,10 @@ def find_syncs(fn) -> list[str]:
 
 
 def profile_phase(eng, image, calib, card: str, frame_ms: float,
-                  view: str, frames: int = 2) -> None:
+                  view: str, frames: int = 2) -> list:
     """Device time by kernel over a few bf16 frames (torch.profiler), and
-    the device's idle share of the unprofiled median frame time."""
+    the device's idle share of the unprofiled median frame time. -> [(kernel
+    name, ms a frame, calls a frame)]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,6 +375,7 @@ def profile_phase(eng, image, calib, card: str, frame_ms: float,
           "kernel_launches_per_frame": sum(k[2] for k in kernels),
           "top": [{"kernel": k[0][:90], "ms": k[1], "calls": k[2]}
                   for k in kernels[:20]], "card": card})
+    return kernels
 
 
 FRAME_SHAPES = {"depth": (257, 257), "valid": (257, 257),
@@ -551,7 +594,24 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20})
     if any(c > b for c, b in zip(counts, recon.budgets[1:])):
         fail(f"the dense frame overflowed its budgets: {counts}")
-    profile_phase(eng, image, eye, card, med, "dense")
+    kernels = profile_phase(eng, image, eye, card, med, "dense")
+    calls = {"wgmma_mlp_kernel": 0, "mlp_kernel": 0, "xproj_kernel": 0}
+    for name, _, n in kernels:
+        if "wgmma_mlp_kernel" in name:
+            calls["wgmma_mlp_kernel"] += n
+        elif "mlp_kernel<" in name:
+            calls["mlp_kernel"] += n
+        elif "xproj_kernel" in name:
+            calls["xproj_kernel"] += n
+    colour = ray_chunks(netC, res * res, 1)
+    want = {"wgmma_mlp_kernel": levels, "mlp_kernel": colour,
+            "xproj_kernel": colour}
+    emit({"phase": "dense_kernel_calls", "per_frame": calls,
+          "expected": want})
+    if calls != want:
+        fail(f"the dense frame's device kernels a frame {calls}: expected one "
+             f"wgmma kernel a per-point call and the ray MLP's {colour} "
+             f"projection + layer chunks, {want}")
     res16 = frame_check.compare_to_golden(out, golden,
                                           frame_check.BF16_DENSE_LIMITS)
     emit({"phase": "golden", "view": "dense", "dtype": "bf16", **res16,
@@ -770,8 +830,9 @@ def kernels_line(rows: list, launches: dict) -> dict:
             if all(r["bound_by"] == "operations" for r in path) else "bytes",
             "library_ms": None,
             "shapes": {f"{r['shape']}/{r['dtype']}": {
-                k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                  "max_abs_err")} for r in mine}})
+                k: r[k] for k in ("route", "ms", "plain_ms", "bound_ms",
+                                  "max_abs_err", "p999_abs_err")}
+                for r in mine}})
     return {"kernels": entries}
 
 

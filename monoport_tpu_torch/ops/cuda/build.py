@@ -44,16 +44,20 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
+def nvcc_command(source: str, library: str) -> list[str]:
+    """The compiler call that builds ``source`` into ``library``; register
+    and shared-memory use go to stderr."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+            library, source]
+
+
 def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    # register and shared-memory use go to stderr
-    proc = subprocess.Popen(
-        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-         source_path(name)])
+    proc = subprocess.Popen(nvcc_command(source_path(name), tmp))
     return proc, tmp
 
 

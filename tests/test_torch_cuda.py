@@ -3,7 +3,8 @@ per-point, gathering ray) against their plain versions (f32 atol 2e-5 /
 rtol 1e-4, bf16 atol 2e-2), at the published head widths and a narrow test
 head, T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
 beyond the image for the gather, and a scratch small enough that the
-launcher walks the rays in several chunks.
+launcher walks the rays in several chunks; the bf16 per-point kernel is one
+launch with no scratch.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -109,7 +110,8 @@ def test_anchor_kernel_matches_plain(card, name, dtype):
 def test_point_kernel_matches_plain(card, name, dtype):
     p = tmlp.pack_mlp_params(_head(name), dtype=dtype, device=card)
     rng = np.random.RandomState(5)
-    for points in (77, 4097):
+    # ragged around the 64-point block, and one past a full wave of blocks
+    for points in (1, 63, 64, 65, 77, 4097, 262145):
         x = torch.from_numpy(rng.randn(1, points, p.c_f).astype(
             np.float32)).to(card)
         before = tmlp.apply_mlp.launches
@@ -124,10 +126,11 @@ def test_point_kernel_matches_plain(card, name, dtype):
 @pytest.mark.cuda
 def test_chunked_launch_equals_one_chunk(card, monkeypatch):
     """A scratch of a few rows makes the launcher walk the rays in many
-    chunks: the result is bit-identical to the single-chunk launch."""
+    chunks: the result is bit-identical to the single-chunk launch. The
+    per-point kernel chunks in f32 only (bf16 has no scratch)."""
     p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
                                  device=card)
-    pm = tmlp.pack_mlp_params(_head("netG"), dtype=torch.bfloat16,
+    pm = tmlp.pack_mlp_params(_head("netG"), dtype=torch.float32,
                               device=card)
     rng = np.random.RandomState(6)
     rays, k, taps = 1500, 3, 6
@@ -147,6 +150,38 @@ def test_chunked_launch_equals_one_chunk(card, monkeypatch):
     torch.cuda.synchronize()
     for a, b in zip(whole, parts):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_point_kernel_is_one_launch_without_scratch(card, monkeypatch):
+    """bf16 apply_mlp never reaches the scratch launcher, allocates only its
+    input copy and output, and runs as one device kernel (no xproj)."""
+    p = tmlp.pack_mlp_params(_head("netG"), dtype=torch.bfloat16, device=card)
+    x = torch.from_numpy(np.random.RandomState(9).randn(1, 9000, p.c_f).astype(
+        np.float32)).to(card)
+    tmlp.apply_mlp(p, x)                         # build and warm up
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("bf16 apply_mlp reached the scratch launcher")
+
+    monkeypatch.setattr(tmlp, "launch_packed", refuse)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tmlp.apply_mlp(p, x)
+        torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    # x as f32 -> bf16 -> padded, and the f32 output, with allocator slack;
+    # the f32 projection scratch alone would be 64 MiB
+    assert extra < 9000 * (p.c_f * 2 + p.widths[0] * 2 + 4) + (2 << 20)
+    mlp = [(e.key, e.count) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "mlp" in e.key]
+    assert len(mlp) == 1 and "wgmma_mlp_kernel" in mlp[0][0], mlp
+    assert mlp[0][1] == 1, mlp
+    assert not any("xproj" in e.key for e in prof.key_averages())
 
 
 @pytest.mark.cuda
