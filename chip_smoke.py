@@ -14,9 +14,12 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    bf16 and f32, with the device code's route, the maximum and the 99.9th
    percentile of the error, times (CUDA events) and the bound (the larger
    of operations over the card's peak for their type and bytes over its
-   memory rate, H100 SXM data-sheet peaks); the per-point kernel's bf16
-   rows also time its ring alone (``stream_wgmma``: the L2 floor of its
-   tiling) and give the L2 read rate that implies;
+   memory rate, H100 SXM data-sheet peaks); the bf16 rows of the ray and
+   per-point kernels (one wgmma kernel, csrc/wgmma_mlp.cuh) also time its
+   ring alone (``stream_ray_wgmma`` / ``stream_wgmma``: the L2 floor of its
+   tiling) and give the L2 read rate that implies; the ray rows give the
+   operations the kernel does over those of the bound (``recompute``: it
+   projects the feature again for every tap);
 4. frame: the committed netG + netC at full width through ReconEngine at
    the real-time operating point, bf16, a few frontal frames timed; the
    launch counts are zeroed just before and read just after, and must be
@@ -36,8 +39,8 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    f32 once: the per-point MLP once for every hierarchy level and the ray
    MLP once for the frontal colour, no stream sync, ``recon_counts``
    against the budgets (``band_report``), the profile (one wgmma kernel a
-   per-point call, and the projection pass of the ray MLP's colour call
-   only), the frames held
+   per-point call and one for the ray MLP's colour call; in one profiled
+   f32 frame the FMA route's projection and layer chunks), the frames held
    to the dense JAX golden, its subsampled ``sdf`` and ``recon_counts``
    included, and to the same frames run through the plain versions of the
    kernels on the card (f32: ``recon_counts`` equal);
@@ -83,11 +86,15 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {"f32": {"atol": 2e-5, "rtol": 1e-4}, "bf16": {"atol": 2e-2, "rtol": 0.0}}
 FRAMES = 5
-# the device code behind each kernel and dtype: the per-point MLP's bf16
-# route is its own wgmma kernel, every other row runs csrc/mlp_tiles.cuh
-# (mma.sync tensor cores in bf16, plain FMA in f32)
-ROUTES = {("fused_mlp", "bf16"): "sm90_wgmma"}
+# the device code behind each kernel and dtype: the bf16 routes of the ray
+# and per-point MLPs are the wgmma kernel (csrc/wgmma_mlp.cuh), every other
+# row runs csrc/mlp_tiles.cuh (mma.sync tensor cores in bf16, plain FMA in
+# f32)
+ROUTES = {("fused_ray_mlp", "bf16"): "sm90_wgmma",
+          ("fused_mlp", "bf16"): "sm90_wgmma"}
 TILES_ROUTE = {"bf16": "tiles_mma_sync", "f32": "tiles_fma"}
+# rows a block of the f32 layer kernel (F32Cfg::BM, csrc/mlp_tiles.cuh)
+F32_BLOCK_ROWS = 32
 
 
 def emit(obj: dict) -> None:
@@ -147,6 +154,15 @@ def ray_mlp_work(head, rays: int, taps: int, dtype: str, anchors: int = 1,
     return flops + mix, flops / PEAK_FLOPS[dtype] + mix / F32_FMA_PEAK, nbytes
 
 
+def ray_recompute(head, taps: int) -> float:
+    """The multiply-adds the ray MLP's wgmma kernel does over those of
+    ``ray_mlp_work``: it projects the feature again for every tap."""
+    c_in, outs, _ = _head_dims(head)
+    mac_ray = (c_in - 1) * sum(outs)
+    mac_tap = sum(a * b for a, b in zip(outs[:-1], outs[1:]))
+    return taps * (mac_ray + mac_tap) / (mac_ray + taps * mac_tap)
+
+
 def point_mlp_work(head, points: int, dtype: str):
     """The same for the per-point MLP: every layer's W_x x and W_h h per
     point."""
@@ -191,6 +207,7 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
     import torch
 
     from monoport_tpu_torch import frame_check, profile_gather
+    from monoport_tpu_torch.ops.cuda import wgmma
 
     # a hierarchy queries its coarsest lattice whole, then a budget a level
     levels = set()
@@ -287,9 +304,14 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
                    "library_ms": None}
             if row["route"] == "sm90_wgmma":
                 xr = tmlp.pad_feat(p, args[0]).reshape(rays, -1).contiguous()
-                row["l2_floor_ms"] = cuda_ms(lambda: tmlp.stream_wgmma(p, xr),
-                                             reps)
-                row["l2_read_tb_s"] = (tmlp.streamed_bytes(p, rays)
+                if kernel == "fused_ray_mlp":
+                    zr = args[1].reshape(rays, taps).contiguous()
+                    stream = lambda: tray.stream_ray_wgmma(p, xr, zr)
+                    row["recompute"] = ray_recompute(head, taps)
+                else:
+                    stream = lambda: tmlp.stream_wgmma(p, xr)
+                row["l2_floor_ms"] = cuda_ms(stream, reps)
+                row["l2_read_tb_s"] = (wgmma.streamed_bytes(p, rays, taps)
                                        / row["l2_floor_ms"] / 1e9)
             emit(row)
             if not ok:
@@ -299,11 +321,11 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
     return rows
 
 
-def ray_chunks(net, rays: int, taps: int) -> int:
-    """The chunks one ray-MLP call of ``net``'s head walks (one
-    ``xproj_kernel`` and one ``mlp_kernel`` launch each): the launcher's
-    rule in ``csrc/mlp_tiles.cuh`` (``launch``) for its bounded scratch,
-    whole waves of 64-row blocks where one fits."""
+def ray_chunks(net, rays: int, taps: int, block_rows: int) -> int:
+    """The chunks one f32 ray-MLP or per-point MLP call of ``net``'s head
+    walks (one ``xproj_kernel`` and one ``mlp_kernel`` launch each): the
+    launcher's rule in ``csrc/mlp_tiles.cuh`` (``launch``) for its bounded
+    scratch, whole waves of ``block_rows``-row blocks where one fits."""
     import torch
 
     from monoport_tpu_torch.ops.cuda.fused_ray_mlp import XP_SCRATCH_BYTES
@@ -312,7 +334,7 @@ def ray_chunks(net, rays: int, taps: int) -> int:
                for lin in net.surface_classifier.layers())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     chunk = max(1, XP_SCRATCH_BYTES // (4 * ntot))
-    wave = sms * 64 // taps
+    wave = sms * block_rows // taps
     if chunk >= rays:
         return 1
     if wave >= 1 and chunk >= wave:
@@ -548,6 +570,24 @@ def plain_kernels():
         engine.apply_ray, engine.apply_anchor, engine.apply_mlp = kept
 
 
+def mlp_calls(kernels: list) -> dict:
+    """Launches of our MLP device kernels among profiled (name, ms, calls):
+    the wgmma kernel by its epilogue (per-point or ray), and the layer and
+    projection kernels of csrc/mlp_tiles.cuh."""
+    calls = {"wgmma_point": 0, "wgmma_ray": 0, "mlp_kernel": 0,
+             "xproj_kernel": 0}
+    for name, _, n in kernels:
+        if "wgmma_mlp_kernel" in name and "RayEpilogue" in name:
+            calls["wgmma_ray"] += n
+        elif "wgmma_mlp_kernel" in name and "PointEpilogue" in name:
+            calls["wgmma_point"] += n
+        elif "mlp_kernel<" in name:
+            calls["mlp_kernel"] += n
+        elif "xproj_kernel" in name:
+            calls["xproj_kernel"] += n
+    return calls
+
+
 def as_golden(out: dict) -> dict:
     """A frame's outputs as the numpy arrays ``compare_to_golden`` takes."""
     return {k: (v if k == "valid" else v.float()).cpu().numpy()
@@ -594,24 +634,15 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20})
     if any(c > b for c, b in zip(counts, recon.budgets[1:])):
         fail(f"the dense frame overflowed its budgets: {counts}")
-    kernels = profile_phase(eng, image, eye, card, med, "dense")
-    calls = {"wgmma_mlp_kernel": 0, "mlp_kernel": 0, "xproj_kernel": 0}
-    for name, _, n in kernels:
-        if "wgmma_mlp_kernel" in name:
-            calls["wgmma_mlp_kernel"] += n
-        elif "mlp_kernel<" in name:
-            calls["mlp_kernel"] += n
-        elif "xproj_kernel" in name:
-            calls["xproj_kernel"] += n
-    colour = ray_chunks(netC, res * res, 1)
-    want = {"wgmma_mlp_kernel": levels, "mlp_kernel": colour,
-            "xproj_kernel": colour}
-    emit({"phase": "dense_kernel_calls", "per_frame": calls,
+    calls = mlp_calls(profile_phase(eng, image, eye, card, med, "dense"))
+    want = {"wgmma_point": levels, "wgmma_ray": 1, "mlp_kernel": 0,
+            "xproj_kernel": 0}
+    emit({"phase": "dense_kernel_calls", "dtype": "bf16", "per_frame": calls,
           "expected": want})
     if calls != want:
-        fail(f"the dense frame's device kernels a frame {calls}: expected one "
-             f"wgmma kernel a per-point call and the ray MLP's {colour} "
-             f"projection + layer chunks, {want}")
+        fail(f"the bf16 dense frame's device kernels a frame {calls}: "
+             f"expected one wgmma kernel a per-point call and one for the "
+             f"ray MLP's colour call, {want}")
     res16 = frame_check.compare_to_golden(out, golden,
                                           frame_check.BF16_DENSE_LIMITS)
     emit({"phase": "golden", "view": "dense", "dtype": "bf16", **res16,
@@ -622,6 +653,24 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     out32 = eng32.frame(image, image, eye)
     torch.cuda.synchronize()
     ms32 = (time.perf_counter() - t0) * 1e3
+    # f32 keeps the FMA route: a projection and a layer launch a chunk of
+    # every per-point level and of the colour query
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng32.frame(image, image, eye)
+        torch.cuda.synchronize()
+    calls32 = mlp_calls([(e.key, 0.0, e.count) for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA])
+    chunks = ray_chunks(netC, res * res, 1, F32_BLOCK_ROWS) + sum(
+        ray_chunks(netG, n, 1, F32_BLOCK_ROWS) for n in (
+            recon32.resolutions[0] ** 3, *recon32.budgets[1:]))
+    want32 = {"wgmma_point": 0, "wgmma_ray": 0, "mlp_kernel": chunks,
+              "xproj_kernel": chunks}
+    emit({"phase": "dense_kernel_calls", "dtype": "f32", "per_frame": calls32,
+          "expected": want32})
+    if calls32 != want32:
+        fail(f"the f32 dense frame's device kernels {calls32}: expected the "
+             f"FMA route's projection + layer chunks, {want32}")
     res32 = frame_check.compare_to_golden(out32, golden)
     sdf32 = frame_check.compare_sdf(out32, golden)
     counts32 = out32["recon_counts"].tolist()

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for sm_90a into a shared
 library with a plain C interface under ``_build/`` and loaded with ctypes,
 at first use. The library's name carries the hash of the source and the
-shared header, so an edited source never loads a stale library.
+shared headers, so an edited source never loads a stale library.
 ``build_all`` compiles every source at once, one ``nvcc`` each.
 """
 
@@ -22,7 +22,7 @@ import time
 PACKAGE = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir)
 CSRC = os.path.join(PACKAGE, "csrc")
 BUILD_DIR = os.path.join(PACKAGE, "_build")
-HEADERS = ("mlp_tiles.cuh",)
+HEADERS = ("mlp_tiles.cuh", "wgmma_mlp.cuh")
 
 
 def sources() -> list[str]:

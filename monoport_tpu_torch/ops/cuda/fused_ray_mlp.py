@@ -4,22 +4,34 @@ plain versions.
 ``apply_ray`` replaces ``monoport_tpu/ops/pallas/fused_ray_mlp.py::
 _ray_kernel``, which carries every occupancy and colour query of the
 frontal real-time frame (the march, both refines and the colour query: 4
-launches a frame) and the refines of an in-plane-rotated frame. Per ray the
-T z-taps share the pixel-aligned feature, so every layer's skip/input
-projection splits as ``W_x x = W_f feat + z * w_z``: ``W_f feat`` is
-computed once per ray and ``z * w_z`` is a rank-1 term per tap.
+launches a frame), the colour query of a dense frame and the refines of an
+in-plane-rotated frame. Per ray the T z-taps share the pixel-aligned
+feature, so every layer's skip/input projection splits as ``W_x x = W_f
+feat + z * w_z``: ``z * w_z`` is a rank-1 term per tap, added in f32.
 
 ``apply_anchor`` replaces ``_anchor_kernel`` of the same file, which
 carries the refine levels of a rotated (free-viewpoint) frame: a ray has K
 anchor features, their projections are computed once per ray, and each
 tap mixes them with its K hat weights before adding ``z * w_z + b``.
 
-The kernels (``csrc/fused_ray_mlp.cu`` over ``csrc/mlp_tiles.cuh``; design
-and bound in their headers) are CUDA C++ for sm_90a, built with ``nvcc`` at
-first use into ``_build/`` and bound through ctypes (``build.py``). Each
-wrapper launches its kernel for CUDA tensors and runs its plain version
-(same rounding points) for CPU tensors; any other device raises, and a
-failed build or launch raises.
+The kernels (``csrc/fused_ray_mlp.cu``; design and bound in its header and
+in the device code it includes) are CUDA C++ for sm_90a, built with
+``nvcc`` at first use into ``_build/`` and bound through ctypes
+(``build.py``). ``apply_ray`` has two routes, by the packed dtype:
+
+* bf16: one launch a call of the wgmma kernel that the per-point MLP
+  shares (``csrc/wgmma_mlp.cuh``): a row is a (ray, tap), ``W_f feat`` is
+  recomputed for each tap, ``z * w_z + b`` is the layer epilogue's f32
+  term; no scratch. The weights are pre-tiled once, at pack time
+  (``wgmma.tile_stream``); a head the kernel cannot take raises.
+* f32: the parity route on plain FMA (``csrc/mlp_tiles.cuh``: ``W_f feat``
+  once a ray into a bounded f32 scratch, then the layer kernel), which
+  wgmma cannot serve (no f32 operands; TF32 would break the 2e-5 parity).
+
+``apply_anchor`` runs ``csrc/mlp_tiles.cuh`` in both dtypes. Each wrapper
+launches its kernel for CUDA tensors and runs its plain version (same
+rounding points) for CPU tensors; any other device raises, and a failed
+check, build or launch raises.
 
 Packing happens once per parameter set (``pack_ray_mlp_params``): widths
 are padded to multiples of 32, the weights are stored transposed
@@ -34,11 +46,11 @@ from dataclasses import dataclass
 
 import torch
 
-from . import build
+from . import build, wgmma
+from .wgmma import LAST_OPS
 
 PAD = 32
 MAX_ANCHORS = 8
-LAST_OPS = {None: 0, "sigmoid": 1, "tanh": 2}
 LIBRARY = "fused_ray_mlp"
 # the f32 scratch of the shared projections is bounded: the launcher walks
 # the rays in chunks that fit it
@@ -81,6 +93,19 @@ class RayMlpPacked:
                     for j in range(1, i))
         n, k = self.widths[i + 1], self.widths[i]
         return self.wh[start:start + n * k].view(n, k)
+
+
+@dataclass(frozen=True)
+class RayWgmmaPacked(RayMlpPacked):
+    """``RayMlpPacked`` plus the bf16 wgmma kernel's operands: ``tiles``
+    the weight stream (every layer's ``[W_h; W_f]`` at kernel widths, in
+    ring-stage order, ``wgmma.tile_stream``), ``tile_bwz`` the epilogue's
+    f32 terms at kernel widths, ``{b[c], b[c + 1], w_z[c], w_z[c + 1]}`` a
+    column pair c (one 16-byte load), ``tile_widths`` the kernel widths of
+    the layers."""
+    tiles: torch.Tensor | None = None
+    tile_bwz: torch.Tensor | None = None
+    tile_widths: tuple = ()
 
 
 def pack_head(head, dtype: torch.dtype, device, split_z: bool) -> RayMlpPacked:
@@ -131,8 +156,15 @@ def pack_head(head, dtype: torch.dtype, device, split_z: bool) -> RayMlpPacked:
 def pack_ray_mlp_params(head, dtype: torch.dtype = torch.bfloat16,
                         device=None) -> RayMlpPacked:
     """The operands of the ray and anchored kernels. Widths come from the
-    layers."""
-    return pack_head(head, dtype, device, split_z=True)
+    layers; for bf16 also the ray kernel's pre-tiled stream."""
+    p = pack_head(head, dtype, device, split_z=True)
+    if dtype != torch.bfloat16:
+        return p
+    tiles, b, wz, widths = wgmma.tile_stream(p)
+    fields = {f: getattr(p, f) for f in RayMlpPacked.__dataclass_fields__}
+    bwz = torch.cat([b.view(-1, 2), wz.view(-1, 2)], dim=1).reshape(-1)
+    return RayWgmmaPacked(**fields, tiles=tiles, tile_bwz=bwz,
+                          tile_widths=widths)
 
 
 def _activate(acc: torch.Tensor, last: bool, last_op) -> torch.Tensor:
@@ -263,13 +295,40 @@ def _check_taps(b_: int, r: int, z: torch.Tensor) -> int:
     return taps
 
 
+def _run_wgmma(p: RayMlpPacked, feat: torch.Tensor, z: torch.Tensor,
+               function: str):
+    if p.dtype != torch.bfloat16 or getattr(p, "tile_bwz", None) is None:
+        raise ValueError("the wgmma ray kernel takes bf16 operands packed by "
+                         "pack_ray_mlp_params")
+    return wgmma.launch(LIBRARY, function, p, p.tile_bwz, feat, z)
+
+
+def launch_ray_wgmma(p: RayWgmmaPacked, feat: torch.Tensor,
+                     z: torch.Tensor) -> torch.Tensor:
+    """One launch of the bf16 kernel: feat [R, widths[0]] bf16 + z [R, T]
+    f32 -> [R, T, out_dim] f32."""
+    return _run_wgmma(p, feat, z, "fused_ray_mlp_wgmma_forward")
+
+
+def stream_ray_wgmma(p: RayWgmmaPacked, feat: torch.Tensor,
+                     z: torch.Tensor) -> None:
+    """The bf16 kernel's ring with the math off: every weight and feature
+    tile loaded, nothing computed. Its time is the tiling's L2 floor
+    (``wgmma.streamed_bytes(p, R, T)`` over it is the L2 read rate). Not a
+    launch of the MLP."""
+    _run_wgmma(p, feat, z, "fused_ray_mlp_wgmma_stream")
+
+
 def _launch_ray(p: RayMlpPacked, feat: torch.Tensor, z: torch.Tensor):
     b_, r, _ = feat.shape
     taps = _check_taps(b_, r, z)
     f = pad_feat(p, feat).reshape(b_ * r, p.widths[0]).contiguous()
     zz = z.to(torch.float32).reshape(b_ * r, taps).contiguous()
-    out = launch_packed(LIBRARY, "fused_ray_mlp_forward", p, f, b_ * r, taps,
-                        z=zz)
+    if p.dtype == torch.bfloat16:
+        out = launch_ray_wgmma(p, f, zz)
+    else:
+        out = launch_packed(LIBRARY, "fused_ray_mlp_forward", p, f, b_ * r,
+                            taps, z=zz)
     apply_ray.launches += 1
     return out.reshape(b_, r, taps, p.out_dim)
 

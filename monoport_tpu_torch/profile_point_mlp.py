@@ -1,5 +1,6 @@
-"""The per-point MLP kernel (kernel 2) at every shape the frames launch it
-on, bf16, and an A/B of two trees on one card.
+"""The per-point MLP kernel (kernel 2) and the ray MLP kernel (kernel 1) at
+every shape the frames launch them on, bf16, and an A/B of two trees on one
+card.
 
     python -m monoport_tpu_torch.profile_point_mlp
     python -m monoport_tpu_torch.profile_point_mlp --ab OTHER_ROOT
@@ -11,7 +12,8 @@ OTHER, this, this, OTHER, each in its own process with its tree first on
 ``sys.path`` (each builds its own kernel), and prints one JSON line a run
 and then the summary: per shape the two runs of each tree and this tree's
 mean over OTHER's. The measurement uses only what every tree since the
-kernel's port has: ``pack_mlp_params`` and ``apply_mlp``.
+kernels' ports has: ``pack_mlp_params`` + ``apply_mlp`` for kernel 2 and
+``pack_ray_mlp_params`` + ``apply_ray`` for kernel 1 (the ``ray_`` shapes).
 
 ``--variants`` builds each given source, a variant of ``csrc/fused_mlp.cu``
 with the same C entry points (a design tried against the kernel), and
@@ -22,7 +24,11 @@ version.
 
 Heads: netG (257, 1024, 512, 256, 128, 1, sigmoid) and netC (513, 1024,
 512, 256, 128, 3, tanh) with weights and inputs from a numpy seed. Times
-are CUDA events around ``REPS`` calls after a warm-up.
+are CUDA events around ``REPS`` calls after a warm-up: ``ms`` as the host
+issues the calls, ``device_ms`` with the calls queued behind a sleep of the
+card, so that they run back to back (under ~0.1 ms a call the host's
+enqueue rate, not the card, sets ``ms``); ``host_ms`` is the host's clock
+a call while it queues them.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HEADS = {"netG": ((257, 1024, 512, 256, 128, 1), "sigmoid"),
          "netC": ((513, 1024, 512, 256, 128, 3), "tanh")}
@@ -41,12 +48,22 @@ SHAPES = (("march", "netG", 33 ** 3), ("refine65_points", "netG", 2304 * 6),
           ("coarse_4913", "netG", 17 ** 3), ("level_16384", "netG", 16384),
           ("level_65536", "netG", 65536), ("level_131072", "netG", 131072),
           ("level_262144", "netG", 262144))
+# (name, head, rays, taps): chip_smoke's kernel-1 rows, from the frontal
+# frame's march, refines and colour query, and the dense frame's colour
+RAY_SHAPES = (("ray_march", "netG", 33 * 33, 33),
+              ("ray_refine65", "netG", 65 * 65, 6),
+              ("ray_refine257", "netG", 192 * 192, 6),
+              ("ray_colour", "netC", 192 * 192, 1),
+              ("ray_colour_dense", "netC", 257 * 257, 1))
 REPS = 20
+# ~25 ms of the card's clock: longer than the host takes to enqueue REPS
+# calls of any shape here
+SLEEP_CYCLES = 50_000_000
 VARIANT_SHAPES = (("netG", 262144), ("netC", 18432))
 
 
-def _packs(fused_mlp) -> dict:
-    """Both heads, seeded, packed in bf16 on the card."""
+def _packs(pack) -> dict:
+    """Both heads, seeded, packed by ``pack`` in bf16 on the card."""
     import numpy as np
     import torch
 
@@ -66,23 +83,32 @@ def _packs(fused_mlp) -> dict:
                     (rng.randn(o, i) / np.sqrt(i)).astype(np.float32)))
                 lin.bias.copy_(torch.from_numpy(
                     (rng.randn(o) * 0.1).astype(np.float32)))
-        packs[name] = fused_mlp.pack_mlp_params(head, torch.bfloat16, "cuda")
+        packs[name] = pack(head, torch.bfloat16, "cuda")
     return packs
 
 
-def _ms(fn) -> float:
+def _ms(fn, queued: bool = False) -> tuple[float, float]:
+    """(ms a call on the card, ms a call on the host's clock while issuing
+    it) over REPS calls after a warm-up. ``queued``: the card first sleeps
+    (``torch.cuda._sleep``) while the host enqueues every call, so the calls
+    run back to back and the first time is the device's, not the host's
+    enqueue rate (which sets it, unqueued, for calls under ~0.1 ms)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(REPS):
         fn()
     end.record()
+    host = (time.perf_counter() - t0) * 1e3 / REPS
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / REPS, host
 
 
 def measure(root: str) -> dict:
@@ -91,15 +117,29 @@ def measure(root: str) -> dict:
     import numpy as np
     import torch
 
-    from monoport_tpu_torch.ops.cuda import fused_mlp
+    from monoport_tpu_torch.ops.cuda import fused_mlp, fused_ray_mlp
 
-    packs = _packs(fused_mlp)
-    out = {"root": os.path.abspath(root), "ms": {}}
+    packs = _packs(fused_mlp.pack_mlp_params)
+    out = {"root": os.path.abspath(root), "ms": {}, "device_ms": {},
+           "host_ms": {}}
+
+    def timed(label, fn):
+        out["ms"][label] = _ms(fn)[0]
+        out["device_ms"][label], out["host_ms"][label] = _ms(fn, queued=True)
+
     for i, (label, name, points) in enumerate(SHAPES):
         rng = np.random.RandomState(100 + i)
         x = torch.from_numpy(rng.randn(1, points, HEADS[name][0][0]).astype(
             np.float32)).cuda()
-        out["ms"][label] = _ms(lambda: fused_mlp.apply_mlp(packs[name], x))
+        timed(label, lambda: fused_mlp.apply_mlp(packs[name], x))
+    packs = _packs(fused_ray_mlp.pack_ray_mlp_params)
+    for i, (label, name, rays, taps) in enumerate(RAY_SHAPES):
+        rng = np.random.RandomState(200 + i)
+        feat = torch.from_numpy(rng.randn(
+            1, rays, HEADS[name][0][0] - 1).astype(np.float32)).cuda()
+        z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps)).astype(
+            np.float32)).cuda()
+        timed(label, lambda: fused_ray_mlp.apply_ray(packs[name], feat, z))
     return out
 
 
@@ -115,7 +155,7 @@ def variants(sources: list[str]) -> dict:
     from monoport_tpu_torch.ops.cuda import build, fused_mlp
     from monoport_tpu_torch.ops.cuda.fused_ray_mlp import LAST_OPS
 
-    packs = _packs(fused_mlp)
+    packs = _packs(fused_mlp.pack_mlp_params)
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
     built = {src: os.path.join(tmp, f"variant{i}.so")
@@ -154,7 +194,7 @@ def variants(sources: list[str]) -> dict:
                 if key == "ms":
                     torch.cuda.synchronize()
                     row["max_err"] = float((res - want).abs().max())
-                row[key] = _ms(lambda: fn(*args))
+                row[key] = _ms(lambda: fn(*args))[0]
             out.setdefault(src, {})[f"{name}_{points}"] = row
     return {"phase": "point_mlp_variants", "variants": out,
             "card": card_line()}
@@ -179,11 +219,16 @@ def ab(other: str) -> dict:
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     summary = {}
-    for label, _, points in SHAPES:
-        old = [runs[0]["ms"][label], runs[3]["ms"][label]]
-        new = [runs[1]["ms"][label], runs[2]["ms"][label]]
-        summary[label] = {"points": points, "other_ms": old, "this_ms": new,
-                          "this_over_other": sum(new) / sum(old)}
+    rows = [(label, points) for label, _, points in SHAPES] + [
+        (label, rays * taps) for label, _, rays, taps in RAY_SHAPES]
+    for label, n in rows:
+        summary[label] = {"rows": n}
+        for key in ("ms", "device_ms", "host_ms"):
+            old = [runs[0][key][label], runs[3][key][label]]
+            new = [runs[1][key][label], runs[2][key][label]]
+            summary[label].update({f"other_{key}": old, f"this_{key}": new,
+                                   f"this_over_other_{key}":
+                                   sum(new) / sum(old)})
     return {"phase": "point_mlp_ab", "other": os.path.abspath(other),
             "shapes": summary, "card": card_line()}
 

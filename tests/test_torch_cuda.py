@@ -3,8 +3,8 @@ per-point, gathering ray) against their plain versions (f32 atol 2e-5 /
 rtol 1e-4, bf16 atol 2e-2), at the published head widths and a narrow test
 head, T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
 beyond the image for the gather, and a scratch small enough that the
-launcher walks the rays in several chunks; the bf16 per-point kernel is one
-launch with no scratch.
+launcher walks the rays in several chunks; the bf16 per-point and ray
+kernels are one launch each with no scratch.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -127,9 +127,11 @@ def test_point_kernel_matches_plain(card, name, dtype):
 def test_chunked_launch_equals_one_chunk(card, monkeypatch):
     """A scratch of a few rows makes the launcher walk the rays in many
     chunks: the result is bit-identical to the single-chunk launch. The
-    per-point kernel chunks in f32 only (bf16 has no scratch)."""
+    per-point and ray kernels chunk in f32 only (bf16 has no scratch)."""
     p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
                                  device=card)
+    pr = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.float32,
+                                  device=card)
     pm = tmlp.pack_mlp_params(_head("netG"), dtype=torch.float32,
                               device=card)
     rng = np.random.RandomState(6)
@@ -142,11 +144,11 @@ def test_chunked_launch_equals_one_chunk(card, monkeypatch):
     x = torch.from_numpy(rng.randn(1, 9000, pm.c_f).astype(
         np.float32)).to(card)
     whole = (tray.apply_anchor(p, feat, w, z), tray.apply_ray(
-        p, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
+        pr, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
     ntot = sum(p.widths[1:])
     monkeypatch.setattr(tray, "XP_SCRATCH_BYTES", 4 * ntot * 700)
     parts = (tray.apply_anchor(p, feat, w, z), tray.apply_ray(
-        p, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
+        pr, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
     torch.cuda.synchronize()
     for a, b in zip(whole, parts):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
@@ -181,6 +183,67 @@ def test_bf16_point_kernel_is_one_launch_without_scratch(card, monkeypatch):
            and "mlp" in e.key]
     assert len(mlp) == 1 and "wgmma_mlp_kernel" in mlp[0][0], mlp
     assert mlp[0][1] == 1, mlp
+    assert not any("xproj" in e.key for e in prof.key_averages())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["netC", "netG"])
+def test_bf16_ray_kernel_matches_plain_at_ragged_shapes(card, name):
+    """The bf16 ray kernel (wgmma) against the plain version: ray counts
+    around the 64-ray block (1, 63, 65) and the march's 1,089, each at 1, 6
+    and 33 taps."""
+    p = tray.pack_ray_mlp_params(_head(name), dtype=torch.bfloat16,
+                                 device=card)
+    rng = np.random.RandomState(10)
+    for rays in (1, 63, 65, 1089):
+        feat = torch.from_numpy(rng.randn(1, rays, p.c_f).astype(
+            np.float32)).to(card)
+        for taps in (1, 6, 33):
+            z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps))
+                                 .astype(np.float32)).to(card)
+            before = tray.apply_ray.launches
+            got = tray.apply_ray(p, feat, z)
+            torch.cuda.synchronize()
+            assert tray.apply_ray.launches == before + 1
+            assert got.shape == (1, rays, taps, p.out_dim)
+            torch.testing.assert_close(got, tray.apply_ray_plain(p, feat, z),
+                                       **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_bf16_ray_kernel_is_one_launch_without_scratch(card, monkeypatch):
+    """bf16 apply_ray never reaches the scratch launcher, allocates only its
+    input copies and output, and runs as one device kernel (no xproj)."""
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
+                                 device=card)
+    rng = np.random.RandomState(9)
+    rays, taps = 9000, 6
+    feat = torch.from_numpy(rng.randn(1, rays, p.c_f).astype(
+        np.float32)).to(card)
+    z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps)).astype(
+        np.float32)).to(card)
+    tray.apply_ray(p, feat, z)                   # build and warm up
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("bf16 apply_ray reached the scratch launcher")
+
+    monkeypatch.setattr(tray, "launch_packed", refuse)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tray.apply_ray(p, feat, z)
+        torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    # feat as bf16 (padded), z, and the f32 output, with allocator slack;
+    # the f32 projection scratch alone would be 64 MiB
+    assert extra < rays * (p.c_f * 2 + p.widths[0] * 2 + taps * 8) + (2 << 20)
+    mlp = [(e.key, e.count) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "mlp" in e.key]
+    assert len(mlp) == 1 and "wgmma_mlp_kernel" in mlp[0][0], mlp
+    assert "RayEpilogue" in mlp[0][0] and mlp[0][1] == 1, mlp
     assert not any("xproj" in e.key for e in prof.key_averages())
 
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from monoport_tpu.ops.pallas import fused_mlp as jmlp
 from monoport_tpu_torch.models.heads import SurfaceClassifier
 from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
+from monoport_tpu_torch.ops.cuda import wgmma
 
 torch.set_num_threads(2)
 N = 77
@@ -129,12 +130,12 @@ def test_tiled_stream_inverts_to_wf_and_wh(name):
     ``tile_bias``; the stream holds nothing else."""
     p = tmlp.pack_mlp_params(_seeded_head(*FULL_HEADS[name]))
     c = p.widths[0]
-    assert p.tile_widths == tuple(tmlp.kernel_width(w) for w in p.widths[1:])
+    assert p.tile_widths == tuple(wgmma.kernel_width(w) for w in p.widths[1:])
     pos, boff = 0, 0
     for i, off in enumerate(p.xoff):
         n_k, n = p.tile_widths[i], p.widths[i + 1]
         kh = p.tile_widths[i - 1] if i else 0
-        m = tmlp.untile_layout(p.tiles[pos:pos + n_k * (kh + c)], n_k, kh + c)
+        m = wgmma.untile_layout(p.tiles[pos:pos + n_k * (kh + c)], n_k, kh + c)
         pos += n_k * (kh + c)
         assert torch.equal(m[:n, kh:], p.wf[off:off + n])
         if i:
@@ -152,17 +153,17 @@ def test_tile_layout_is_the_core_matrix_order(name):
     """Element (n, k) of a [N_pass, 32] K-tile sits at ((k // 8) * N_pass +
     n) * 8 + k % 8 of its tile, tiles K-major within a pass of <= 512 rows:
     the offsets the kernel's wgmma descriptors read."""
-    n = tmlp.kernel_width(FULL_HEADS[name][0][1])
+    n = wgmma.kernel_width(FULL_HEADS[name][0][1])
     k = 64
     w = torch.arange(n * k, dtype=torch.float32).reshape(n, k)
-    flat = tmlp.tile_layout(w)
-    pn = min(n, tmlp.PASS_N)
+    flat = wgmma.tile_layout(w)
+    pn = min(n, wgmma.PASS_N)
     for row, col in ((0, 0), (7, 9), (n - 1, k - 1), (pn // 2 + 3, 37)):
         p_, r = divmod(row, pn)
-        t, kk = divmod(col, tmlp.BK)
-        base = (p_ * (k // tmlp.BK) + t) * pn * tmlp.BK
+        t, kk = divmod(col, wgmma.BK)
+        base = (p_ * (k // wgmma.BK) + t) * pn * wgmma.BK
         assert flat[base + ((kk // 8) * pn + r) * 8 + kk % 8] == w[row, col]
-    assert torch.equal(tmlp.untile_layout(flat, n, k), w)
+    assert torch.equal(wgmma.untile_layout(flat, n, k), w)
 
 
 def _walk_stream(p, x):
@@ -176,16 +177,16 @@ def _walk_stream(p, x):
     h = torch.zeros(xr.shape[0], max(p.tile_widths), dtype=torch.bfloat16)
     pos = boff = 0
     for i, n in enumerate(p.tile_widths):
-        pn = min(n, tmlp.PASS_N)
-        nh = p.tile_widths[i - 1] // tmlp.BK if i else 0
+        pn = min(n, wgmma.PASS_N)
+        nh = p.tile_widths[i - 1] // wgmma.BK if i else 0
         acc = torch.zeros(xr.shape[0], n)
         for pass_ in range(n // pn):
-            for kt in range(nh + c // tmlp.BK):
-                tile = p.tiles[pos:pos + pn * tmlp.BK]
-                pos += pn * tmlp.BK
-                w = tmlp.untile_layout(tile, pn, tmlp.BK)
-                a = (h[:, kt * tmlp.BK:(kt + 1) * tmlp.BK] if kt < nh else
-                     xr[:, (kt - nh) * tmlp.BK:(kt - nh + 1) * tmlp.BK])
+            for kt in range(nh + c // wgmma.BK):
+                tile = p.tiles[pos:pos + pn * wgmma.BK]
+                pos += pn * wgmma.BK
+                w = wgmma.untile_layout(tile, pn, wgmma.BK)
+                a = (h[:, kt * wgmma.BK:(kt + 1) * wgmma.BK] if kt < nh else
+                     xr[:, (kt - nh) * wgmma.BK:(kt - nh + 1) * wgmma.BK])
                 cols = slice(pass_ * pn, (pass_ + 1) * pn)
                 acc[:, cols] += a.float() @ w.float().t()
         v = _activate(acc + p.tile_bias[boff:boff + n], i == last, p.last_op)
@@ -207,13 +208,13 @@ def test_stream_walk_matches_plain(name):
 
 
 def test_kernel_widths_and_shape_limits():
-    assert [tmlp.kernel_width(n) for n in (1, 32, 33, 96, 128, 257, 512,
+    assert [wgmma.kernel_width(n) for n in (1, 32, 33, 96, 128, 257, 512,
                                            513, 1024)] == \
         [32, 32, 64, 128, 128, 512, 512, 1024, 1024]
-    assert tmlp.wgmma_shape_error((1024, 512, 256, 128, 32)) is None
-    assert tmlp.wgmma_shape_error((1024, 2048)) is None      # the last: passes
-    assert "layer 0" in tmlp.wgmma_shape_error((2048, 64, 32))
-    assert "hidden layer 1" in tmlp.wgmma_shape_error((1024, 1024, 32))
+    assert wgmma.wgmma_shape_error((1024, 512, 256, 128, 32)) is None
+    assert wgmma.wgmma_shape_error((1024, 2048)) is None    # the last: passes
+    assert "layer 0" in wgmma.wgmma_shape_error((2048, 64, 32))
+    assert "hidden layer 1" in wgmma.wgmma_shape_error((1024, 1024, 32))
 
 
 def test_wgmma_launcher_checks_raise_before_any_launch(monkeypatch):
