@@ -14,12 +14,16 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    bf16 and f32, with the device code's route, the maximum and the 99.9th
    percentile of the error, times (CUDA events) and the bound (the larger
    of operations over the card's peak for their type and bytes over its
-   memory rate, H100 SXM data-sheet peaks); the bf16 rows of the ray and
-   per-point kernels (one wgmma kernel, csrc/wgmma_mlp.cuh) also time its
-   ring alone (``stream_ray_wgmma`` / ``stream_wgmma``: the L2 floor of its
-   tiling) and give the L2 read rate that implies; the ray rows give the
-   operations the kernel does over those of the bound (``recompute``: it
-   projects the feature again for every tap);
+   memory rate, H100 SXM data-sheet peaks); every bf16 row runs the one
+   wgmma kernel (csrc/wgmma_mlp.cuh) and also times its ring alone
+   (``stream_*wgmma``: the L2 floor of its tiling) and gives the L2 read
+   rate that implies; the ray, anchored and gathering rows give the
+   operations the kernel does over those of the bound (``recompute``: the
+   ray kernel projects the feature again for every tap, the anchored route
+   each tap's mixed row); the bf16 anchored and gathering rows also time
+   their weighted-row pass (csrc/mix_rows.cuh) beside its byte bound and
+   the wgmma launch alone, and hold the pass to ``mix_rows_plain`` (equal
+   or one bf16 ulp apart, the differing elements counted);
 4. frame: the committed netG + netC at full width through ReconEngine at
    the real-time operating point, bf16, a few frontal frames timed; the
    launch counts are zeroed just before and read just after, and must be
@@ -32,8 +36,9 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    for the march and once for each per-point refine level, the anchored
    MLP once for each anchored level, the ray MLP never), no stream sync,
    a frame with a ``compact_hint`` held to the plain frame where nothing
-   dropped, the profile, and the bf16 and f32 frames held to the rotated
-   JAX golden;
+   dropped, the profile (in bf16 one weighted-row pass and one wgmma
+   launch of the anchored epilogue for each anchored level, no FMA-route
+   kernel), and the bf16 and f32 frames held to the rotated JAX golden;
 6. dense frame: the same nets under ``frame_check.quality_config``
    (``mode='dense'``, the 257^3 hierarchy), frontal calib, bf16 timed and
    f32 once: the per-point MLP once for every hierarchy level and the ray
@@ -49,7 +54,8 @@ non-zero, printing no result, without either. Phases (one JSON line each):
 8. hierarchy frame: the rotated calib under the real-time engine with
    ``rotated.march=False`` (hierarchy 17, 33, 65, then ``ray_refine``):
    the per-point MLP once a level, the anchored MLP as the pose's plan
-   says, no stream sync, held to the same frame run through the plain
+   says, no stream sync, the profile (as the rotated frame's, and no ray
+   MLP), held to the same frame run through the plain
    versions of the kernels on the card, bf16 and f32 (f32:
    ``recon_counts`` and ``compact_dropped`` equal);
 9. frames: a clip of two frontal frames and a rotated one through
@@ -87,12 +93,13 @@ PEAK_BYTES = 3.35e12
 TOL = {"f32": {"atol": 2e-5, "rtol": 1e-4}, "bf16": {"atol": 2e-2, "rtol": 0.0}}
 FRAMES = 5
 # the device code behind each kernel and dtype: the bf16 routes of the ray
-# and per-point MLPs are the wgmma kernel (csrc/wgmma_mlp.cuh), every other
-# row runs csrc/mlp_tiles.cuh (mma.sync tensor cores in bf16, plain FMA in
-# f32)
+# and per-point MLPs are the wgmma kernel (csrc/wgmma_mlp.cuh), those of the
+# anchored and gathering MLPs the weighted-row pass (csrc/mix_rows.cuh) and
+# the wgmma kernel; every f32 row runs csrc/mlp_tiles.cuh (plain FMA)
 ROUTES = {("fused_ray_mlp", "bf16"): "sm90_wgmma",
-          ("fused_mlp", "bf16"): "sm90_wgmma"}
-TILES_ROUTE = {"bf16": "tiles_mma_sync", "f32": "tiles_fma"}
+          ("fused_mlp", "bf16"): "sm90_wgmma",
+          ("fused_anchor_mlp", "bf16"): "sm90_mix_wgmma",
+          ("fused_gather_mlp", "bf16"): "sm90_mix_wgmma"}
 # rows a block of the f32 layer kernel (F32Cfg::BM, csrc/mlp_tiles.cuh)
 F32_BLOCK_ROWS = 32
 
@@ -161,6 +168,87 @@ def ray_recompute(head, taps: int) -> float:
     mac_ray = (c_in - 1) * sum(outs)
     mac_tap = sum(a * b for a, b in zip(outs[:-1], outs[1:]))
     return taps * (mac_ray + mac_tap) / (mac_ray + taps * mac_tap)
+
+
+def anchor_recompute(head, taps: int, anchors: int) -> float:
+    """The multiply-adds the anchored MLP's bf16 route does over those of
+    ``ray_mlp_work``: T (2 c_f sum(O) + M_tap) against K c_f sum(O) + T
+    M_tap (each tap's mixed row is projected, as hi and lo halves, not
+    each anchor once)."""
+    c_in, outs, _ = _head_dims(head)
+    mac_ray = (c_in - 1) * sum(outs)
+    mac_tap = sum(a * b for a, b in zip(outs[:-1], outs[1:]))
+    return taps * (2 * mac_ray + mac_tap) / (anchors * mac_ray
+                                             + taps * mac_tap)
+
+
+def bf16_ulps(a, b):
+    """Distance of two bf16 tensors in units in the last place (+0 and -0
+    equal)."""
+    import torch
+
+    def key(t):
+        bits = t.contiguous().view(torch.int16).int()
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (key(a) - key(b)).abs()
+
+
+def mix_phase(kernel, p, args, reps: int) -> dict:
+    """The bf16 anchored or gathering route's pieces at one row's inputs:
+    the weighted-row pass against ``mix_rows_plain`` on the card (bf16 ulps
+    apart, the differing elements counted), its time and byte bound (the
+    table rows a non-zero weight touches, the weights, the indices and its
+    output, each once), the wgmma launch alone and its ring alone."""
+    import torch
+
+    from monoport_tpu_torch.ops.cuda import fused_gather_mlp as tgather
+    from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+    from monoport_tpu_torch.ops.cuda import mix_rows, wgmma
+
+    if kernel == "fused_anchor_mlp":
+        feat_k, w, z = args
+        _, rays, taps, k = w.shape
+        table = tray.anchor_table(p, feat_k)
+        wk = w.reshape(-1, k).contiguous()
+        zr = z.reshape(-1, 1).contiguous()
+        idx = None
+        mix = lambda: tray.mix_anchor_rows(p, table, wk, taps)
+        mlp = lambda x: tray.launch_anchor_wgmma(p, x, zr)
+        stream = lambda x: tray.stream_anchor_wgmma(p, x, zr)
+        rows_read = int((w[0] != 0).any(dim=1).sum().item())
+        streamed = wgmma.streamed_bytes(p.anchor, rays * taps, 1)
+    else:
+        fmap, uv, z = args
+        _, h, wd, _ = fmap.shape
+        rays, taps = z.shape[1:]
+        table = tgather._table(p, fmap)[0]
+        idx, wk = tgather.bilinear_taps(uv, h, wd)
+        idx, wk = idx.reshape(rays, 4).contiguous(), wk.reshape(
+            rays, 4).contiguous()
+        zr = z.reshape(rays, taps).contiguous()
+        mix = lambda: tgather.mix_gather_rows(p, table, idx, wk)
+        mlp = lambda x: tray.launch_ray_wgmma(p, x, zr)
+        stream = lambda x: tray.stream_ray_wgmma(p, x, zr)
+        rows_read = int(torch.unique(idx[wk != 0]).numel())
+        streamed = wgmma.streamed_bytes(p, rays, taps)
+    x = mix()
+    want = mix_rows.mix_rows_plain(table, wk, idx=idx, taps=taps,
+                                   c_pad=p.widths[0], split=idx is None)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(x, want)
+    nbytes = (rows_read * table.shape[1] * 2 + wk.numel() * 4
+              + (idx.numel() * 4 if idx is not None else 0) + x.numel() * 2)
+    ms_stream = cuda_ms(lambda: stream(x), reps)
+    return {"mix_ms": cuda_ms(mix, reps), "mix_bytes": nbytes,
+            "mix_bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "mix_max_ulps": int(ulps.max().item()),
+            "mix_elements_differing": int((ulps > 0).sum().item()),
+            "mix_elements": ulps.numel(),
+            "mixed_rows_mb": x.numel() * 2 / 1e6,
+            "wgmma_ms": cuda_ms(lambda: mlp(x), reps),
+            "l2_floor_ms": ms_stream,
+            "l2_read_tb_s": streamed / ms_stream / 1e9}
 
 
 def point_mlp_work(head, points: int, dtype: str):
@@ -292,7 +380,7 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
             row = {"phase": "kernel", "kernel": kernel, "shape": name,
                    "dtype": dname, "rays": rays, "taps": taps, "anchors": k,
                    "c_in": p.c_f,
-                   "route": ROUTES.get((kernel, dname), TILES_ROUTE[dname]),
+                   "route": ROUTES.get((kernel, dname), "tiles_fma"),
                    "max_abs_err": float(err.max().item()),
                    "p999_abs_err": p999,
                    "atol": tol["atol"], "rtol": tol["rtol"], "ok": ok,
@@ -302,7 +390,13 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
                    "bound_ms": max(t_ops, t_byte) * 1e3,
                    "bound_by": "operations" if t_ops >= t_byte else "bytes",
                    "library_ms": None}
-            if row["route"] == "sm90_wgmma":
+            if row["route"] == "sm90_mix_wgmma":
+                row.update(mix_phase(kernel, p, args, reps))
+                row["recompute"] = (
+                    anchor_recompute(head, taps, k)
+                    if kernel == "fused_anchor_mlp"
+                    else ray_recompute(head, taps))
+            elif row["route"] == "sm90_wgmma":
                 xr = tmlp.pad_feat(p, args[0]).reshape(rays, -1).contiguous()
                 if kernel == "fused_ray_mlp":
                     zr = args[1].reshape(rays, taps).contiguous()
@@ -317,6 +411,9 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
             if not ok:
                 fail(f"{kernel} {name} {dname}: the kernel disagrees with "
                      f"its plain version (max abs err {row['max_abs_err']})")
+            if row.get("mix_max_ulps", 0) > 1:
+                fail(f"{kernel} {name}: the weighted-row pass is "
+                     f"{row['mix_max_ulps']} bf16 ulps from mix_rows_plain")
             rows.append(row)
     return rows
 
@@ -504,7 +601,7 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
     out, med, launches = timed_frames(
         eng, image, golden["calib"], counters,
         {"fused_ray_mlp": 4, "fused_mlp": 0, "fused_anchor_mlp": 0,
-         "fused_gather_mlp": 0},
+         "fused_gather_mlp": 0, "mix_rows": 0},
         "frontal", card)
     total = {"fused_ray_mlp": launches["fused_ray_mlp"]}
     profile_phase(eng, image, golden["calib"], card, med, "frontal")
@@ -519,6 +616,8 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
     expect = {"fused_ray_mlp": 0, "fused_gather_mlp": 0,
               "fused_mlp": 1 + sum(1 for k in plan if not k),
               "fused_anchor_mlp": sum(1 for k in plan if k)}
+    # the bf16 anchored route: one weighted-row pass an anchored call
+    expect["mix_rows"] = expect["fused_anchor_mlp"]
     out, med, launches = timed_frames(eng, image, calib, counters, expect,
                                       "rotated", card)
     total.update({k: launches[k] for k in ("fused_mlp", "fused_anchor_mlp")})
@@ -543,7 +642,9 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
             fail(f"the hinted frame's geometry differs: {same}")
         if tex_diff > 1e-5:
             fail(f"the hinted frame's texture differs by {tex_diff}")
-    profile_phase(eng, image, calib, card, med, "rotated")
+    anchored_calls_check(
+        profile_phase(eng, image, calib, card, med, "rotated"), expect,
+        "rotated")
     out32 = golden_phase(eng32, out, image, rotated,
                          frame_check.BF16_ROTATED_LIMITS, "rotated", card)
     dropped32 = out32["compact_dropped"].tolist()
@@ -572,20 +673,42 @@ def plain_kernels():
 
 def mlp_calls(kernels: list) -> dict:
     """Launches of our MLP device kernels among profiled (name, ms, calls):
-    the wgmma kernel by its epilogue (per-point or ray), and the layer and
-    projection kernels of csrc/mlp_tiles.cuh."""
-    calls = {"wgmma_point": 0, "wgmma_ray": 0, "mlp_kernel": 0,
-             "xproj_kernel": 0}
+    the wgmma kernel by its epilogue (per-point, ray or anchored), the
+    weighted-row pass, and the layer and projection kernels of
+    csrc/mlp_tiles.cuh."""
+    calls = {"wgmma_point": 0, "wgmma_ray": 0, "wgmma_anchor": 0,
+             "mix_rows": 0, "mlp_kernel": 0, "xproj_kernel": 0}
     for name, _, n in kernels:
         if "wgmma_mlp_kernel" in name and "RayEpilogue" in name:
             calls["wgmma_ray"] += n
         elif "wgmma_mlp_kernel" in name and "PointEpilogue" in name:
             calls["wgmma_point"] += n
+        elif "wgmma_mlp_kernel" in name and "AnchorEpilogue" in name:
+            calls["wgmma_anchor"] += n
+        elif "mix_rows_kernel" in name:
+            calls["mix_rows"] += n
         elif "mlp_kernel<" in name:
             calls["mlp_kernel"] += n
         elif "xproj_kernel" in name:
             calls["xproj_kernel"] += n
     return calls
+
+
+def anchored_calls_check(kernels: list, expect: dict, view: str) -> None:
+    """A bf16 frame's profiled device kernels against its launch counts: one
+    wgmma launch a per-point call and, for each anchored call, one
+    weighted-row pass and one wgmma launch of the anchored epilogue; no ray
+    MLP and no kernel of the FMA route."""
+    calls = mlp_calls(kernels)
+    want = {"wgmma_point": expect["fused_mlp"], "wgmma_ray": 0,
+            "wgmma_anchor": expect["fused_anchor_mlp"],
+            "mix_rows": expect["fused_anchor_mlp"], "mlp_kernel": 0,
+            "xproj_kernel": 0}
+    emit({"phase": f"{view}_kernel_calls", "dtype": "bf16",
+          "per_frame": calls, "expected": want})
+    if calls != want:
+        fail(f"the bf16 {view} frame's device kernels a frame {calls}: "
+             f"expected {want}")
 
 
 def as_golden(out: dict) -> dict:
@@ -620,7 +743,7 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
               "mask": (256, 256, 1), "sdf": (res, res, res),
               "recon_counts": (levels - 1,)}
     expect = {"fused_ray_mlp": 1, "fused_mlp": levels, "fused_anchor_mlp": 0,
-              "fused_gather_mlp": 0}
+              "fused_gather_mlp": 0, "mix_rows": 0}
     torch.cuda.reset_peak_memory_stats()
     out, med, launches = timed_frames(eng, image, eye, counters, expect,
                                       "dense", card, shapes,
@@ -635,8 +758,8 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     if any(c > b for c, b in zip(counts, recon.budgets[1:])):
         fail(f"the dense frame overflowed its budgets: {counts}")
     calls = mlp_calls(profile_phase(eng, image, eye, card, med, "dense"))
-    want = {"wgmma_point": levels, "wgmma_ray": 1, "mlp_kernel": 0,
-            "xproj_kernel": 0}
+    want = {"wgmma_point": levels, "wgmma_ray": 1, "wgmma_anchor": 0,
+            "mix_rows": 0, "mlp_kernel": 0, "xproj_kernel": 0}
     emit({"phase": "dense_kernel_calls", "dtype": "bf16", "per_frame": calls,
           "expected": want})
     if calls != want:
@@ -664,8 +787,8 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     chunks = ray_chunks(netC, res * res, 1, F32_BLOCK_ROWS) + sum(
         ray_chunks(netG, n, 1, F32_BLOCK_ROWS) for n in (
             recon32.resolutions[0] ** 3, *recon32.budgets[1:]))
-    want32 = {"wgmma_point": 0, "wgmma_ray": 0, "mlp_kernel": chunks,
-              "xproj_kernel": chunks}
+    want32 = {"wgmma_point": 0, "wgmma_ray": 0, "wgmma_anchor": 0,
+              "mix_rows": 0, "mlp_kernel": chunks, "xproj_kernel": chunks}
     emit({"phase": "dense_kernel_calls", "dtype": "f32", "per_frame": calls32,
           "expected": want32})
     if calls32 != want32:
@@ -752,6 +875,7 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     expect = {"fused_ray_mlp": 0, "fused_gather_mlp": 0,
               "fused_mlp": n_levels + sum(1 for k in plan if not k),
               "fused_anchor_mlp": sum(1 for k in plan if k)}
+    expect["mix_rows"] = expect["fused_anchor_mlp"]
     rc = eng_h.recon.resolutions[-1]
     shapes = {**FRAME_SHAPES, "sdf": (rc, rc, rc),
               "recon_counts": (n_levels - 1,)}
@@ -763,6 +887,9 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
                                           depth_on_valid=True)
     for k, v in launches.items():
         total[k] += v
+    anchored_calls_check(
+        profile_phase(eng_h, image, calib, card, med_h, "hierarchy"), expect,
+        "hierarchy")
     emit({"phase": "hierarchy", "anchor_plan": [k or 0 for k in plan],
           "launches_per_frame_expected": expect,
           "recon_counts": out_h["recon_counts"].tolist(),
@@ -906,6 +1033,7 @@ def main() -> int:
     from monoport_tpu_torch.ops.cuda import fused_gather_mlp as tgather
     from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
     from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+    from monoport_tpu_torch.ops.cuda import mix_rows
     from monoport_tpu_torch.weights import load_default_networks
 
     t0 = time.perf_counter()
@@ -921,7 +1049,8 @@ def main() -> int:
     rows = kernel_phase(netG, netC, tray, tmlp, tgather)
     counters = {"fused_ray_mlp": tray.apply_ray, "fused_mlp": tmlp.apply_mlp,
                 "fused_anchor_mlp": tray.apply_anchor,
-                "fused_gather_mlp": tgather.apply_gather_ray}
+                "fused_gather_mlp": tgather.apply_gather_ray,
+                "mix_rows": mix_rows.launch_mix_rows}
     launches = frame_phases(netG, netC, counters, card)
     for name, n in dense_phases(netG, netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n

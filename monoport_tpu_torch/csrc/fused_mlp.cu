@@ -19,7 +19,7 @@
 // tiles): L2 bandwidth is the floor of this tiling. fused_mlp_wgmma_stream
 // runs the same ring with no math and measures it (PERF.md).
 //
-// f32 (fused_mlp_forward, dtype 0): the parity route, kept on plain FMA in
+// f32 (fused_mlp_forward): the parity route, kept on plain FMA in
 // the shared device code (mlp_tiles.cuh: an xproj pass into an f32 scratch,
 // then the layer kernel). wgmma has no f32 operands, and TF32 would break
 // the 2e-5 parity with the f32 reference.
@@ -50,15 +50,13 @@ extern "C" {
 
 // The f32 route. x [N, C_in padded] f32; out [N, out_dim] f32; wf [sum(out_i),
 // C_in padded] the W_x^T of every layer; wz [sum(out_i)] zeros. The other
-// arguments as mlp_forward (mlp_tiles.cuh). dtype must be 0: bf16 takes
+// arguments as mlp_forward (mlp_tiles.cuh). bf16 takes
 // fused_mlp_wgmma_forward.
-int fused_mlp_forward(int dtype, const void* x, float* out, float* xp,
-                      int xp_rows, const void* wf, const void* wh,
-                      const float* wz, const float* b, const int* widths,
-                      int n_layers, int out_dim, int last_op, int N,
-                      void* stream) {
-  if (dtype != 0) return 1005;
-  return mlp_forward(0, x, nullptr, nullptr, out, xp, xp_rows, wf, wh, wz, b,
+int fused_mlp_forward(const void* x, float* out, float* xp, int xp_rows,
+                      const void* wf, const void* wh, const float* wz,
+                      const float* b, const int* widths, int n_layers,
+                      int out_dim, int last_op, int N, void* stream) {
+  return mlp_forward(x, nullptr, nullptr, out, xp, xp_rows, wf, wh, wz, b,
                      widths, n_layers, out_dim, last_op, N, 1, 1, stream);
 }
 

@@ -1,7 +1,10 @@
-// Shared device code of the fused skip-concat MLP kernels for Hopper (sm_90a):
-// fused_ray_mlp.cu (ray and anchored ray MLP), fused_mlp.cu (per-point MLP)
-// and fused_gather_mlp.cu (ray MLP with the bilinear feature gather inside)
-// include this file and add their plain C entry points.
+// Shared device code of the f32 routes of the fused skip-concat MLP kernels
+// for Hopper (sm_90a): fused_ray_mlp.cu (ray and anchored ray MLP),
+// fused_mlp.cu (per-point MLP) and fused_gather_mlp.cu (ray MLP with the
+// bilinear feature gather inside) include this file and add their plain C
+// entry points. These are the parity routes: wgmma has no f32 operands, and
+// TF32 would break the 2e-5 parity with the f32 reference. Every bf16 route
+// runs wgmma_mlp.cuh (and mix_rows.cuh) instead.
 //
 // One function covers the three forms. A "ray" r carries n_anchors input
 // rows feat[r, k] (C wide) and T taps; layer i computes, for tap t,
@@ -14,14 +17,12 @@
 //  * per-point MLP: n_anchors = 1, T = 1, no z term (z is a column of feat);
 //  * gathering ray MLP: the ray MLP whose input row is not read but made in
 //    shared memory from four rows of a [H*W, C] table (gather_xproj_kernel).
-// Operands are bf16 or f32, accumulation is f32; xp and h . W_h stay f32
-// and h is rounded to the operand type only after each activation.
+// Operands and sums are f32, on plain FMA.
 //
-// Bound on the card: operations. The launches do tens to hundreds of GFLOP
-// each against a few MB of weights and inputs, far above the ~295 FLOP/byte
-// ridge of an H100 in bf16.
+// Bound on the card: operations, at the 67 TFLOP/s of f32 outside the
+// tensor cores.
 //
-// Design (first, simple version; wgmma/TMA come later):
+// Design:
 //  * xproj_kernel computes xp = feat . [W_f0 | ... | W_f(L-1)] once per
 //    input row into an f32 scratch [rows, N_tot] in device memory. A TPU
 //    core keeps these projections in VMEM; here they would not fit next to
@@ -29,23 +30,18 @@
 //    trip through device memory.
 //  * mlp_kernel: a block owns BM flattened (ray, tap) rows and runs all
 //    layers with the activations ping-ponging between two shared-memory
-//    buffers (64 x 1024 + 64 x 520 bf16 for the PIFu heads). Weights stream
-//    from L2 in BK-deep K-tiles through a double-buffered cp.async ring; the
-//    epilogue adds the row's (mixed) shared projection, the rank-1 z term
-//    and the bias, activates, and writes the next layer's input (or the
-//    output).
+//    buffers. Weights stream from L2 in BK-deep K-tiles; the epilogue adds
+//    the row's (mixed) shared projection, the rank-1 z term and the bias,
+//    activates, and writes the next layer's input (or the output).
 //  * the scratch is bounded: the launcher walks the rays in chunks that fit
 //    the scratch it is given (whole waves of blocks where they fit), each
 //    chunk an xproj launch and an mlp launch on the same stream, so the
 //    scratch does not grow with the ray count.
-//  * bf16 products run on mma.sync m16n8k16 tensor-core instructions; f32
-//    runs on plain FMA (no TF32), so it matches the f32 reference tightly.
 //  * channel widths are padded to multiples of 32 by the packer; T and
 //    n_anchors are runtime arguments.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,166 +68,6 @@ __device__ __forceinline__ float activate(float x, bool last, int last_op) {
   return x;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ---------------------------------------------------------------------------
-// Block GEMM, bf16 operands on tensor cores:
-//   C[BM, BN] = A[BM, K] (shared, row-major, stride lda)
-//             . W^T rows [n0, n0 + BN) of gW [n_rows, K] (device memory).
-// 8 warps as 2 (rows) x 4 (cols), each a 32 x 32 tile of m16n8 fragments.
-// epi receives every element of the block tile: Pairs ? epi(row, col, v0,
-// v1), two neighbouring columns (col even) as a thread holds them, else
-// epi(row, col, v) an element a call. Measured on an H100 (bf16, netG):
-// pairs (8-byte loads, one 32-bit store) are faster where the epilogue
-// mixes anchors (5.49 against 6.27 ms at 18,432 rays x 3 anchors x 6 taps);
-// where the taps of a ray share one projection, single elements are (0.79
-// against 0.85 ms at 1,089 rays x 33 taps); with one tap a ray the two are
-// within 3% of each other.
-struct Bf16Cfg {
-  using T = __nv_bfloat16;
-  static constexpr int BM = 64, BN = 128, BK = 32;
-  static constexpr int LD_PAD = 8;          // row pad of the A buffers
-  static constexpr int SB_LD = BK + 8;      // W tile stored [BN][BK + 8]
-  static constexpr int SB_ELEMS = 2 * BN * SB_LD;
-
-  template <bool Pairs, class Epi>
-  static __device__ void gemm(const T* sA, int lda, int K, const T* gW,
-                              int n0, int n_rows, T* sB, Epi epi) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int wm = warp >> 2, wn = warp & 3;
-    const int g = lane >> 2, c = lane & 3;
-    float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    const int ktiles = K / BK;
-    auto load_tile = [&](int kt, int buf) {
-      T* base = sB + buf * BN * SB_LD;
-      for (int q = tid; q < BN * (BK / 8); q += kThreads) {
-        const int r = q / (BK / 8), seg = q % (BK / 8);
-        T* dst = base + r * SB_LD + seg * 8;
-        const int n = n0 + r;
-        if (n < n_rows)
-          cp_async16(dst, gW + (size_t)n * K + kt * BK + seg * 8);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-      cp_async_commit();
-    };
-
-    load_tile(0, 0);
-    for (int kt = 0; kt < ktiles; ++kt) {
-      if (kt + 1 < ktiles) {
-        load_tile(kt + 1, (kt + 1) & 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* b = sB + (kt & 1) * BN * SB_LD;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        uint32_t af[2][4], bfr[4][2];
-        const int k = kt * BK + kk + 2 * c;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const T* p = sA + (wm * 32 + mt * 16 + g) * lda + k;
-          af[mt][0] = ld32(p);
-          af[mt][1] = ld32(p + 8 * lda);
-          af[mt][2] = ld32(p + 8);
-          af[mt][3] = ld32(p + 8 * lda + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const T* p = b + (wn * 32 + nt * 8 + g) * SB_LD + kk + 2 * c;
-          bfr[nt][0] = ld32(p);
-          bfr[nt][1] = ld32(p + 8);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = wm * 32 + mt * 16 + g + h * 8;
-          const int col = n0 + wn * 32 + nt * 8 + 2 * c;
-          if constexpr (Pairs) {
-            epi(row, col, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-          } else {
-            epi(row, col, acc[mt][nt][2 * h]);
-            epi(row, col + 1, acc[mt][nt][2 * h + 1]);
-          }
-        }
-  }
-
-  static __device__ __forceinline__ T from_float(float x) {
-    return __float2bfloat16(x);
-  }
-  // the 8 values of a 16-byte vector as floats, and back (rounded)
-  static __device__ __forceinline__ void unpack(const uint4& raw, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    return raw;
-  }
-  // W rounded values to p (W = 2: one 32-bit store, p 4-byte aligned)
-  template <int W>
-  static __device__ __forceinline__ void store(T* p, const float* v) {
-    if constexpr (W == 2) {
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < W; ++j) p[j] = __float2bfloat16(v[j]);
-    }
-  }
-};
-
 // Block GEMM, f32 operands on plain FMA: each thread owns a 4 x 4 micro
 // tile (rows 4*ty + i, cols tx + 32*j); the W tile is staged k-major so a
 // warp reads 32 consecutive columns. epi(row, col, v): one element a call.
@@ -242,7 +78,7 @@ struct F32Cfg {
   static constexpr int SB_LD = BN + 4;      // W tile stored [BK][BN + 4]
   static constexpr int SB_ELEMS = BK * SB_LD;
 
-  template <bool Pairs, class Epi>
+  template <class Epi>
   static __device__ void gemm(const T* sA, int lda, int K, const T* gW,
                               int n0, int n_rows, T* sB, Epi epi) {
     const int tid = threadIdx.x, ty = tid >> 5, tx = tid & 31;
@@ -322,8 +158,8 @@ __device__ void load_rows(T* dst, int lda, const T* src, int r0, int n_rows,
 // Make BM input rows in shared memory (row stride lda) by bilinear gather:
 // row m = sum_k wgt[m, k] * table[idx[m, k]] over its four taps, table
 // row-major [*, K] in the operand type. A thread makes one 16-byte vector of
-// a row from four 16-byte loads (a warp reads whole 512-byte bf16 rows of
-// the 256-channel map); products and sums are f32, rounded one by one and
+// a row from four 16-byte loads (a warp reads 512 contiguous bytes of each
+// row); products and sums are f32, rounded one by one and
 // added in tap order, which is the plain version's arithmetic bit for bit
 // (no fused multiply-add), then one rounding to the operand type. s_idx,
 // s_wgt: the block's [BM, 4] indices and weights in shared memory; a tap
@@ -399,7 +235,7 @@ __device__ __forceinline__ void xproj_columns(
     const typename Cfg::T* sA, int lda, int c_f,
     const typename Cfg::T* __restrict__ wf, int n0, int ntot,
     typename Cfg::T* sB, float* __restrict__ xp, int r0, int R) {
-  Cfg::template gemm<true>(
+  Cfg::gemm(
       sA, lda, c_f, wf, n0, ntot, sB, [&](int m, int col, auto... vs) {
         constexpr int W = sizeof...(vs);
         const float v[W] = {vs...};
@@ -467,7 +303,7 @@ __global__ void __launch_bounds__(kThreads)
 // The per-(ray, tap) MLP over BM flattened rows (row = ray * taps + tap).
 // z may be null (no z term). Mixed: wk holds the rows' hat weights over the
 // ray's n_anchors input rows; else a ray has one input row of weight 1.
-template <class Cfg, bool Mixed, bool Pairs>
+template <class Cfg, bool Mixed>
 __global__ void __launch_bounds__(kThreads)
     mlp_kernel(const float* __restrict__ xp, const float* __restrict__ z,
                const float* __restrict__ wk,
@@ -532,8 +368,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool last = (i == L - 1);
     const T* w = wh + d.whoff[i];
     for (int n0 = 0; n0 < N; n0 += Cfg::BN) {
-      Cfg::template gemm<Pairs>(src, lds, K, w, n0, N, sB, [&](int m, int col,
-                                                               auto... vs) {
+      Cfg::gemm(src, lds, K, w, n0, N, sB, [&](int m, int col, auto... vs) {
         // W neighbouring columns of row m (N is a multiple of W)
         constexpr int W = sizeof...(vs);
         const float acc[W] = {vs...};
@@ -602,9 +437,7 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_x);
   if (err != cudaSuccess) return (int)err;
-  auto kernel = wk ? mlp_kernel<Cfg, true, true>
-                   : (taps == 1 ? mlp_kernel<Cfg, false, true>
-                                : mlp_kernel<Cfg, false, false>);
+  auto kernel = wk ? mlp_kernel<Cfg, true> : mlp_kernel<Cfg, false>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_m);
@@ -656,7 +489,7 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 operands. widths: n_layers + 1 padded
+// f32 operands. widths: n_layers + 1 padded
 // widths (multiples of 32): [C, out_0, ..., out_(L-1)]. Shapes:
 // feat [R, n_anchors, C]; z [R, taps] f32 or null; wk [R, taps, n_anchors]
 // f32 or null (then n_anchors must be 1); out [R, taps, out_dim] f32;
@@ -666,7 +499,7 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
 // gidx [R, 4] i32 and gwgt [R, 4] f32, both or neither: the gathering form,
 // in which feat is the [*, C] table that gidx indexes (n_anchors must be 1).
 // Returns a cudaError_t (0 on success); 1000 + code for a bad argument.
-inline int mlp_forward(int dtype, const void* feat, const float* z,
+inline int mlp_forward(const void* feat, const float* z,
                        const float* wk, float* out, float* xp, int xp_rows,
                        const void* wf, const void* wh, const float* wz,
                        const float* b, const int* widths, int n_layers,
@@ -698,14 +531,9 @@ inline int mlp_forward(int dtype, const void* feat, const float* z,
     if (i > 0) whoff += (long long)d.width[i + 1] * d.width[i];
   }
   d.ntot = ntot;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch<Bf16Cfg>(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, d, R,
-                           taps, n_anchors, s, gidx, gwgt);
-  if (dtype == 0)
-    return launch<F32Cfg>(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, d, R,
-                          taps, n_anchors, s, gidx, gwgt);
-  return 1005;
+  return launch<F32Cfg>(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, d, R,
+                        taps, n_anchors, static_cast<cudaStream_t>(stream),
+                        gidx, gwgt);
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // Shared device code of the bf16 wgmma MLP kernels for Hopper (sm_90a):
 // fused_mlp.cu (the per-point MLP, kernel 2) and fused_ray_mlp.cu (the ray
-// MLP, kernel 1) include this file, each instantiates wgmma_mlp_kernel with
-// its layer epilogue, and each adds its plain C entry points.
+// MLP, kernel 1, and the anchored ray MLP, kernel 3) include this file, each
+// instantiates wgmma_mlp_kernel with its layer epilogue, and each adds its
+// plain C entry points. The gathering ray MLP (kernel 4) launches kernel 1's
+// instantiation on the rows its weighted-row pass makes (mix_rows.cuh).
 //
 // A row of either kernel is one input row x [c_in] bf16 and one output row
 // [out_dim] f32; layer i computes
@@ -10,12 +12,15 @@
 // (f(cat[h, x]) = W_h h + W_x x + ...), leaky-ReLU 0.01 between layers,
 // sigmoid / tanh / none after the last; sums and the epilogue term are f32
 // and h is rounded after each activation. The epilogue is the only
-// difference between the two kernels:
+// difference between the kernels:
 //  * PointEpilogue (kernel 2): term = b[col]; x is the whole input row, z
 //    included, and a block owns 64 points.
 //  * RayEpilogue (kernel 1): term = b[col] + z[r, t] * w_z[col] in f32; x is
 //    the ray's feature row, shared by its T taps, and a block owns 64 rays
 //    at one tap. The shared projection x . W_x is recomputed for every tap.
+//  * AnchorEpilogue (kernel 3): RayEpilogue's arithmetic at one tap; x is
+//    the tap's mixed anchor row (mix_rows.cuh), and a block owns 64 (ray,
+//    tap) rows. Its own name tells kernel 3 from kernel 1 in a profile.
 //
 // The design: one pass, one launch, no scratch, as the TPU kernels keep x
 // and h in VMEM. A block runs every layer as one K loop over [h_{i-1} | x]
@@ -59,6 +64,7 @@
 
 // CUtensorMap; the CUDA driver API's encoder is fetched at run time
 #include <cuda.h>
+#include <cuda_bf16.h>
 
 #include "mlp_tiles.cuh"
 
@@ -133,6 +139,16 @@ struct RayEpilogue {
   }
   __device__ __forceinline__ float* row_out(int r, int out_dim) const {
     return out + ((size_t)r * taps + tap) * out_dim;
+  }
+};
+
+// Kernel 3's epilogue: RayEpilogue at taps = 1 over R * T (ray, tap) rows,
+// each a mixed anchor row: acc + b[col] + z[row] * w_z[col] in f32. Block b
+// owns rows [64 b, 64 b + 64).
+struct AnchorEpilogue : RayEpilogue {
+  __device__ __forceinline__ int begin(int block) {
+    tap = 0;
+    return block * kBM;
   }
 };
 

@@ -22,7 +22,7 @@ import time
 PACKAGE = os.path.join(os.path.dirname(__file__), os.pardir, os.pardir)
 CSRC = os.path.join(PACKAGE, "csrc")
 BUILD_DIR = os.path.join(PACKAGE, "_build")
-HEADERS = ("mlp_tiles.cuh", "wgmma_mlp.cuh")
+HEADERS = ("mix_rows.cuh", "mlp_tiles.cuh", "wgmma_mlp.cuh")
 
 
 def sources() -> list[str]:

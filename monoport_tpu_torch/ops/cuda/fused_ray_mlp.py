@@ -10,28 +10,42 @@ feature, so every layer's skip/input projection splits as ``W_x x = W_f
 feat + z * w_z``: ``z * w_z`` is a rank-1 term per tap, added in f32.
 
 ``apply_anchor`` replaces ``_anchor_kernel`` of the same file, which
-carries the refine levels of a rotated (free-viewpoint) frame: a ray has K
-anchor features, their projections are computed once per ray, and each
-tap mixes them with its K hat weights before adding ``z * w_z + b``.
+carries the refine levels of a rotated (free-viewpoint) frame and the
+hierarchy frame's refine: a ray has K anchor features, and each tap mixes
+their projections with its K hat weights before adding ``z * w_z + b``.
 
 The kernels (``csrc/fused_ray_mlp.cu``; design and bound in its header and
 in the device code it includes) are CUDA C++ for sm_90a, built with
 ``nvcc`` at first use into ``_build/`` and bound through ctypes
-(``build.py``). ``apply_ray`` has two routes, by the packed dtype:
+(``build.py``). Each wrapper has two routes, by the packed dtype:
 
-* bf16: one launch a call of the wgmma kernel that the per-point MLP
-  shares (``csrc/wgmma_mlp.cuh``): a row is a (ray, tap), ``W_f feat`` is
-  recomputed for each tap, ``z * w_z + b`` is the layer epilogue's f32
-  term; no scratch. The weights are pre-tiled once, at pack time
-  (``wgmma.tile_stream``); a head the kernel cannot take raises.
-* f32: the parity route on plain FMA (``csrc/mlp_tiles.cuh``: ``W_f feat``
-  once a ray into a bounded f32 scratch, then the layer kernel), which
+* bf16, ``apply_ray``: one launch a call of the wgmma kernel that the
+  per-point MLP shares (``csrc/wgmma_mlp.cuh``, ``RayEpilogue``): a row is
+  a (ray, tap), ``W_f feat`` is recomputed for each tap, ``z * w_z + b`` is
+  the layer epilogue's f32 term; no scratch. The weights are pre-tiled
+  once, at pack time (``wgmma.tile_stream``); a head the kernel cannot
+  take raises.
+* bf16, ``apply_anchor``: W_f is linear, so the mix moves ahead of it. The
+  weighted-row pass (``csrc/mix_rows.cuh``, ``mix_rows.launch_mix_rows``;
+  bound by bytes) writes each tap's mixed anchor row as a row of its own,
+  its f32 sum split into bf16 hi + lo halves ([R * T, 2 C_f] bf16: 14.2 MB
+  at 2,304 rays x 6 taps, 113 MB at 18,432 x 6, 226 MB at 36,864 x 6 for
+  netG's 256 columns, a transient tensor); then one launch of the same
+  wgmma kernel (``AnchorEpilogue``: ``RayEpilogue`` at one tap) over the R
+  * T rows, with ``[W_f; W_f]`` against ``[hi | lo]`` (``p.anchor``). The
+  TPU kernel mixes f32 projections; one bf16 rounding of the mixed row
+  (2^-9 relative) took the committed netG's outputs 3.1e-2 from them, past
+  the 2e-2 tolerance; hi + lo (~16 bits) brings them to 4.7e-3-1.4e-2,
+  p99.9 1.7e-3-2.0e-3, at the frames' shapes (PERF.md). No scratch. Bound:
+  operations (the MLP's); the pass alone by bytes.
+* f32: the parity routes on plain FMA (``csrc/mlp_tiles.cuh``: ``W_f
+  feat`` once a ray and anchor into a bounded f32 scratch, then the layer
+  kernel, which mixes the anchors' projections in its epilogue), which
   wgmma cannot serve (no f32 operands; TF32 would break the 2e-5 parity).
 
-``apply_anchor`` runs ``csrc/mlp_tiles.cuh`` in both dtypes. Each wrapper
-launches its kernel for CUDA tensors and runs its plain version (same
-rounding points) for CPU tensors; any other device raises, and a failed
-check, build or launch raises.
+Each wrapper launches its kernels for CUDA tensors and runs its plain
+version (the TPU kernel's rounding points) for CPU tensors; any other
+device raises, and a failed check, build or launch raises.
 
 Packing happens once per parameter set (``pack_ray_mlp_params``): widths
 are padded to multiples of 32, the weights are stored transposed
@@ -42,11 +56,12 @@ last layers are zero-padded.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
-from . import build, wgmma
+from . import build, mix_rows, wgmma
 from .wgmma import LAST_OPS
 
 PAD = 32
@@ -102,10 +117,13 @@ class RayWgmmaPacked(RayMlpPacked):
     ring-stage order, ``wgmma.tile_stream``), ``tile_bwz`` the epilogue's
     f32 terms at kernel widths, ``{b[c], b[c + 1], w_z[c], w_z[c + 1]}`` a
     column pair c (one 16-byte load), ``tile_widths`` the kernel widths of
-    the layers."""
+    the layers. ``anchor``: the same head as the anchored route runs it,
+    over mixed rows ``[hi | lo]`` (``widths[0]`` twice as wide), every
+    layer reading ``[W_h; W_f; W_f]``."""
     tiles: torch.Tensor | None = None
     tile_bwz: torch.Tensor | None = None
     tile_widths: tuple = ()
+    anchor: "RayWgmmaPacked | None" = None
 
 
 def pack_head(head, dtype: torch.dtype, device, split_z: bool) -> RayMlpPacked:
@@ -161,10 +179,16 @@ def pack_ray_mlp_params(head, dtype: torch.dtype = torch.bfloat16,
     if dtype != torch.bfloat16:
         return p
     tiles, b, wz, widths = wgmma.tile_stream(p)
-    fields = {f: getattr(p, f) for f in RayMlpPacked.__dataclass_fields__}
     bwz = torch.cat([b.view(-1, 2), wz.view(-1, 2)], dim=1).reshape(-1)
-    return RayWgmmaPacked(**fields, tiles=tiles, tile_bwz=bwz,
-                          tile_widths=widths)
+    hilo = dataclasses.replace(
+        p, wf=torch.cat([p.wf, p.wf], dim=1).contiguous(),
+        widths=(2 * p.widths[0], *p.widths[1:]), c_f=2 * p.widths[0])
+    fields = lambda q: {f: getattr(q, f)
+                        for f in RayMlpPacked.__dataclass_fields__}
+    anchor = RayWgmmaPacked(**fields(hilo), tiles=wgmma.tile_stream(hilo)[0],
+                            tile_bwz=bwz, tile_widths=widths)
+    return RayWgmmaPacked(**fields(p), tiles=tiles, tile_bwz=bwz,
+                          tile_widths=widths, anchor=anchor)
 
 
 def _activate(acc: torch.Tensor, last: bool, last_op) -> torch.Tensor:
@@ -238,20 +262,20 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
                   wk: torch.Tensor | None = None,
                   n_anchors: int | None = None,
                   gather: tuple | None = None) -> torch.Tensor:
-    """Launch one of the C entry points on ``feat``'s device and stream:
-    ``feat`` [n_rays * K, widths[0]] in the compute dtype, ``z``
-    [n_rays, taps] f32, ``wk`` [n_rays, taps, K] f32 -> [n_rays, taps,
-    out_dim] f32. ``gather`` = (idx [n_rays, 4] i32, wgt [n_rays, 4] f32):
-    ``feat`` is then the [H*W, widths[0]] table those index. Raises when
-    the launch is refused."""
+    """Launch one of the f32 routes' C entry points (``csrc/mlp_tiles.cuh``)
+    on ``feat``'s device and stream: ``feat`` [n_rays * K, widths[0]] f32,
+    ``z`` [n_rays, taps] f32, ``wk`` [n_rays, taps, K] f32 -> [n_rays,
+    taps, out_dim] f32. ``gather`` = (idx [n_rays, 4] i32, wgt [n_rays, 4]
+    f32): ``feat`` is then the [H*W, widths[0]] table those index. Raises
+    when the launch is refused."""
     dev = feat.device
     gidx, gwgt = gather or (None, None)
     for name, t in (("z", z), ("w_taps", wk), ("idx", gidx), ("wgt", gwgt),
                     ("wf", p.wf), ("wh", p.wh), ("wz", p.wz), ("b", p.b)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the input on {dev}")
-    if p.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"unsupported compute dtype {p.dtype}")
+    if p.dtype != torch.float32:
+        raise ValueError(f"the FMA route takes f32 packs, not {p.dtype}")
     k = n_anchors or 1
     if not 1 <= k <= MAX_ANCHORS:
         raise ValueError(f"{k} anchors: the kernel takes 1..{MAX_ANCHORS}")
@@ -261,8 +285,7 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
     out = torch.empty(n_rays, taps, p.out_dim, device=dev,
                       dtype=torch.float32)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    args = [(i32, 1 if p.dtype == torch.bfloat16 else 0),
-            (ptr, feat.data_ptr())]
+    args = [(ptr, feat.data_ptr())]
     if wk is not None:
         args.append((ptr, wk.data_ptr()))
     if gather is not None:
@@ -295,11 +318,20 @@ def _check_taps(b_: int, r: int, z: torch.Tensor) -> int:
     return taps
 
 
-def _run_wgmma(p: RayMlpPacked, feat: torch.Tensor, z: torch.Tensor,
-               function: str):
+def check_wgmma_pack(p: RayMlpPacked) -> None:
+    """Raise ValueError unless the wgmma kernel takes this pack: bf16
+    operands pre-tiled by ``pack_ray_mlp_params``, layers it can run."""
     if p.dtype != torch.bfloat16 or getattr(p, "tile_bwz", None) is None:
         raise ValueError("the wgmma ray kernel takes bf16 operands packed by "
                          "pack_ray_mlp_params")
+    reason = wgmma.wgmma_shape_error(p.tile_widths)
+    if reason:
+        raise ValueError(f"the wgmma kernel cannot take this head: {reason}")
+
+
+def _run_wgmma(p: RayMlpPacked, feat: torch.Tensor, z: torch.Tensor,
+               function: str):
+    check_wgmma_pack(p)
     return wgmma.launch(LIBRARY, function, p, p.tile_bwz, feat, z)
 
 
@@ -317,6 +349,40 @@ def stream_ray_wgmma(p: RayWgmmaPacked, feat: torch.Tensor,
     (``wgmma.streamed_bytes(p, R, T)`` over it is the L2 read rate). Not a
     launch of the MLP."""
     _run_wgmma(p, feat, z, "fused_ray_mlp_wgmma_stream")
+
+
+def anchor_table(p: RayMlpPacked, feat_anchors: torch.Tensor) -> torch.Tensor:
+    """feat_anchors [B, R, K, c_f] as the pass's [B * R * K, c_f] bf16 row
+    table: a view where it is bf16 and contiguous already."""
+    if feat_anchors.shape[-1] != p.c_f:
+        raise ValueError(f"feature width {feat_anchors.shape[-1]} != head's "
+                         f"{p.c_f}")
+    return feat_anchors.to(torch.bfloat16).reshape(-1, p.c_f)
+
+
+def mix_anchor_rows(p: RayMlpPacked, table: torch.Tensor, wk: torch.Tensor,
+                    taps: int) -> torch.Tensor:
+    """The bf16 route's pass: table [R * K, c_f] bf16 (``anchor_table``) +
+    wk [R * taps, K] f32 -> the mixed rows [R * taps, 2 widths[0]] bf16,
+    hi | lo."""
+    return mix_rows.launch_mix_rows(LIBRARY, "mix_anchor_rows", table, wk,
+                                    p.widths[0], taps=taps, split=True)
+
+
+def launch_anchor_wgmma(p: RayWgmmaPacked, x: torch.Tensor,
+                        z: torch.Tensor) -> torch.Tensor:
+    """The bf16 route's MLP: one launch over the mixed rows, x [M, 2
+    widths[0]] bf16 (hi | lo) + z [M, 1] f32 -> [M, 1, out_dim] f32."""
+    check_wgmma_pack(p)
+    return _run_wgmma(p.anchor, x, z, "fused_anchor_mlp_wgmma_forward")
+
+
+def stream_anchor_wgmma(p: RayWgmmaPacked, x: torch.Tensor,
+                        z: torch.Tensor) -> None:
+    """``launch_anchor_wgmma``'s ring with the math off, as
+    ``stream_ray_wgmma``. Not a launch of the MLP."""
+    check_wgmma_pack(p)
+    _run_wgmma(p.anchor, x, z, "fused_anchor_mlp_wgmma_stream")
 
 
 def _launch_ray(p: RayMlpPacked, feat: torch.Tensor, z: torch.Tensor):
@@ -340,12 +406,20 @@ def _launch_anchor(p: RayMlpPacked, feat_anchors: torch.Tensor,
     if w_taps.shape != (b_, r, taps, k):
         raise ValueError(f"w_taps shape {tuple(w_taps.shape)} != "
                          f"[B, R, T, K] = {(b_, r, taps, k)}")
-    f = pad_feat(p, feat_anchors).reshape(b_ * r * k,
-                                          p.widths[0]).contiguous()
-    zz = z.to(torch.float32).reshape(b_ * r, taps).contiguous()
-    wk = w_taps.to(torch.float32).reshape(b_ * r, taps, k).contiguous()
-    out = launch_packed(LIBRARY, "fused_anchor_mlp_forward", p, f, b_ * r,
-                        taps, z=zz, wk=wk, n_anchors=k)
+    if not 1 <= k <= MAX_ANCHORS:
+        raise ValueError(f"{k} anchors: the kernel takes 1..{MAX_ANCHORS}")
+    zz = z.to(torch.float32).reshape(b_ * r * taps, 1).contiguous()
+    wk = w_taps.to(torch.float32).reshape(b_ * r * taps, k).contiguous()
+    if p.dtype == torch.bfloat16:
+        check_wgmma_pack(p)
+        x = mix_anchor_rows(p, anchor_table(p, feat_anchors), wk, taps)
+        out = launch_anchor_wgmma(p, x, zz)
+    else:
+        f = pad_feat(p, feat_anchors).reshape(b_ * r * k,
+                                              p.widths[0]).contiguous()
+        out = launch_packed(LIBRARY, "fused_anchor_mlp_forward", p, f,
+                            b_ * r, taps, z=zz.reshape(b_ * r, taps),
+                            wk=wk.reshape(b_ * r, taps, k), n_anchors=k)
     apply_anchor.launches += 1
     return out.reshape(b_, r, taps, p.out_dim)
 

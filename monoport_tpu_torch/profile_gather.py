@@ -3,8 +3,9 @@
 
     python -m monoport_tpu_torch.profile_gather
 
-Measures ``apply_gather_ray`` (the bilinear gather inside the kernel)
-against the compositions the frames use, at two frame shapes of the netG
+Measures ``apply_gather_ray`` (the bilinear gather fused with the MLP:
+in bf16 a weighted-row pass feeding the ray MLP's wgmma kernel) against
+the compositions the frames use, at two frame shapes of the netG
 head (257, 1024, 512, 256, 128, 1) over a 128 x 128 x 256 feature map:
 
   shape fine_192x6:   36,864 rays x 6 taps (the fine ray pass)

@@ -84,10 +84,12 @@ def build_net(opt_net, params: Any,
               device: Optional[torch.device | str] = None) -> MonoPortNet:
     """MonoPortNet with its head widths read from ``params`` (a flax
     ``params`` tree: {'image_filter': ..., 'surface_classifier': ...}),
-    loaded strictly, in eval mode."""
+    loaded strictly, in eval mode, on ``device`` (``resolve_device``:
+    the card unless the caller asks for another device)."""
+    device = resolve_device(device)
     net = MonoPortNet(opt_net, head_channels=head_channels(params))
     net.load_state_dict(torch_state_from_flax(params), strict=True)
-    return net.eval().to(device or "cpu")
+    return net.eval().to(device)
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:

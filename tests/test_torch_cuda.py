@@ -2,9 +2,11 @@
 per-point, gathering ray) against their plain versions (f32 atol 2e-5 /
 rtol 1e-4, bf16 atol 2e-2), at the published head widths and a narrow test
 head, T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
-beyond the image for the gather, and a scratch small enough that the
+beyond the image for the gather, and a scratch small enough that the f32
 launcher walks the rays in several chunks; the bf16 per-point and ray
-kernels are one launch each with no scratch.
+kernels are one launch each with no scratch, the bf16 anchored and
+gathering routes one weighted-row pass and one wgmma launch each, and the
+pass (``csrc/mix_rows.cuh``) equals ``mix_rows_plain`` within one bf16 ulp.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -18,6 +20,8 @@ from monoport_tpu_torch.models.heads import SurfaceClassifier
 from monoport_tpu_torch.ops.cuda import fused_gather_mlp as tgather
 from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
 from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+from monoport_tpu_torch.ops.cuda import mix_rows
+from torch_wgmma_walk import bf16_ulps
 
 HEADS = {"netG": ((257, 1024, 512, 256, 128, 1), "sigmoid"),
          "netC": ((513, 1024, 512, 256, 128, 3), "tanh"),
@@ -126,12 +130,10 @@ def test_point_kernel_matches_plain(card, name, dtype):
 @pytest.mark.cuda
 def test_chunked_launch_equals_one_chunk(card, monkeypatch):
     """A scratch of a few rows makes the launcher walk the rays in many
-    chunks: the result is bit-identical to the single-chunk launch. The
-    per-point and ray kernels chunk in f32 only (bf16 has no scratch)."""
-    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
+    chunks: the result is bit-identical to the single-chunk launch. Every
+    kernel chunks in f32 only (the bf16 routes have no scratch)."""
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.float32,
                                  device=card)
-    pr = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.float32,
-                                  device=card)
     pm = tmlp.pack_mlp_params(_head("netG"), dtype=torch.float32,
                               device=card)
     rng = np.random.RandomState(6)
@@ -144,11 +146,11 @@ def test_chunked_launch_equals_one_chunk(card, monkeypatch):
     x = torch.from_numpy(rng.randn(1, 9000, pm.c_f).astype(
         np.float32)).to(card)
     whole = (tray.apply_anchor(p, feat, w, z), tray.apply_ray(
-        pr, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
+        p, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
     ntot = sum(p.widths[1:])
     monkeypatch.setattr(tray, "XP_SCRATCH_BYTES", 4 * ntot * 700)
     parts = (tray.apply_anchor(p, feat, w, z), tray.apply_ray(
-        pr, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
+        p, feat[:, :, 0], z), tmlp.apply_mlp(pm, x))
     torch.cuda.synchronize()
     for a, b in zip(whole, parts):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
@@ -286,7 +288,8 @@ def test_gather_kernel_matches_plain(card, name, dtype):
 
 @pytest.mark.cuda
 def test_gather_kernel_chunked_equals_one_chunk(card, monkeypatch):
-    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
+    """The f32 route chunks (bf16 has no scratch)."""
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.float32,
                                  device=card)
     fmap, uv, z = _gather_inputs(card, p, 1500, 6)
     whole = tgather.apply_gather_ray(p, fmap, uv, z)
@@ -305,3 +308,135 @@ def test_gather_kernel_rejects_a_batch(card):
     with pytest.raises(ValueError, match="batch 1"):
         tgather.apply_gather_ray(p, fmap.repeat(2, 1, 1, 1),
                                  uv.repeat(2, 1, 1), z.repeat(2, 1, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [20, 64, 256, 512])
+def test_mix_kernel_matches_plain(card, c):
+    """The weighted-row pass against ``mix_rows_plain`` on the card, both
+    forms (the anchors split hi | lo), within one bf16 ulp, zero past the
+    table's width; a width that is no multiple of 8 is padded by the
+    launcher."""
+    rng = np.random.RandomState(11)
+    c_pad = -(-c // 32) * 32
+    k, rays, taps = 3, 301, 6
+    to = lambda a: torch.from_numpy(a).to(card)
+    table = to(rng.randn(rays * k, c).astype(np.float32)).to(torch.bfloat16)
+    w = to(_hat_weights(rng, rays, taps, k)[0].reshape(-1, k))
+    before = mix_rows.launch_mix_rows.launches
+    got = mix_rows.launch_mix_rows("fused_ray_mlp", "mix_anchor_rows", table,
+                                   w, taps=taps, c_pad=c_pad, split=True)
+    want = mix_rows.mix_rows_plain(table, w, taps=taps, c_pad=c_pad,
+                                   split=True)
+    torch.cuda.synchronize()
+    assert got.shape == (rays * taps, 2 * c_pad)
+    assert int(bf16_ulps(got, want).max()) <= 1
+    assert not got[:, c:c_pad].float().abs().any()
+    assert not got[:, c_pad + c:].float().abs().any()
+    gtable = to(rng.randn(500, c).astype(np.float32)).to(torch.bfloat16)
+    idx = to(rng.randint(0, 500, (rays, 4)).astype(np.int32))
+    wgt = to(rng.rand(rays, 4).astype(np.float32))
+    wgt[::5, 2] = 0.0
+    got = mix_rows.launch_mix_rows("fused_gather_mlp", "mix_gather_rows",
+                                   gtable, wgt, idx=idx, c_pad=c_pad)
+    want = mix_rows.mix_rows_plain(gtable, wgt, idx=idx, c_pad=c_pad)
+    torch.cuda.synchronize()
+    assert int(bf16_ulps(got, want).max()) <= 1
+    assert mix_rows.launch_mix_rows.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["netC", "netG"])
+def test_bf16_anchor_kernel_matches_plain_at_ragged_shapes(card, name):
+    """The bf16 anchored route (pass + wgmma) against the plain version (the
+    TPU kernel's math): ray counts around the 64-row block, K in {2, 3, 5},
+    T in {1, 6}."""
+    p = tray.pack_ray_mlp_params(_head(name), dtype=torch.bfloat16,
+                                 device=card)
+    rng = np.random.RandomState(12)
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    for rays in (1, 11, 63, 65, 301):
+        for k, taps in ((2, 6), (3, 6), (5, 6), (3, 1)):
+            feat = to(rng.randn(1, rays, k, p.c_f))
+            w = to(_hat_weights(rng, rays, taps, k))
+            z = to(rng.uniform(-1.3, 1.3, (1, rays, taps)))
+            before = tray.apply_anchor.launches
+            got = tray.apply_anchor(p, feat, w, z)
+            torch.cuda.synchronize()
+            assert tray.apply_anchor.launches == before + 1
+            assert got.shape == (1, rays, taps, p.out_dim)
+            torch.testing.assert_close(
+                got, tray.apply_anchor_plain(p, feat, w, z),
+                **TOL[torch.bfloat16])
+
+
+def _device_kernels(fn):
+    """(name, calls) of every device kernel ``fn`` launches."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_bf16_anchor_route_is_one_pass_and_one_launch(card, monkeypatch):
+    """bf16 apply_anchor never reaches the scratch launcher: one weighted-row
+    pass and one wgmma launch (AnchorEpilogue), no xproj, no mma.sync layer
+    kernel, and no memory beyond its inputs' copies, the mixed rows and the
+    output (the f32 scratch alone would be 64 MiB)."""
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
+                                 device=card)
+    rng = np.random.RandomState(13)
+    rays, k, taps = 9000, 3, 6
+    to = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    feat = to(rng.randn(1, rays, k, p.c_f))
+    w = to(_hat_weights(rng, rays, taps, k))
+    z = to(rng.uniform(-1.3, 1.3, (1, rays, taps)))
+    tray.apply_anchor(p, feat, w, z)             # build and warm up
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("bf16 apply_anchor reached the scratch launcher")
+
+    monkeypatch.setattr(tray, "launch_packed", refuse)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = mix_rows.launch_mix_rows.launches
+    kernels = _device_kernels(lambda: tray.apply_anchor(p, feat, w, z))
+    extra = torch.cuda.max_memory_allocated() - base
+    assert mix_rows.launch_mix_rows.launches == before + 1
+    rows = rays * taps
+    assert extra < (rays * k * p.c_f * 2 + rows * (p.widths[0] * 4 + 4 * k
+                                                   + 4 + 4 * p.out_dim)
+                    + (2 << 20))
+    ours = [(n, c) for n, c in kernels if "mlp" in n or "mix_rows" in n]
+    assert len(ours) == 2 and all(c == 1 for _, c in ours), ours
+    assert any("wgmma_mlp_kernel" in n and "AnchorEpilogue" in n
+               for n, _ in ours), ours
+    assert any("mix_rows_kernel" in n for n, _ in ours), ours
+    assert not any("xproj" in n or "RayEpilogue" in n for n, _ in kernels)
+
+
+@pytest.mark.cuda
+def test_bf16_gather_route_is_one_pass_and_one_ray_launch(card):
+    """bf16 apply_gather_ray: one weighted-row pass and one launch of the ray
+    MLP's wgmma kernel (RayEpilogue), counted on apply_gather_ray only."""
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.bfloat16,
+                                 device=card)
+    fmap, uv, z = _gather_inputs(card, p, 4000, 6)
+    tgather.apply_gather_ray(p, fmap, uv, z)     # build and warm up
+    torch.cuda.synchronize()
+    before = (tgather.apply_gather_ray.launches, tray.apply_ray.launches,
+              mix_rows.launch_mix_rows.launches)
+    kernels = _device_kernels(lambda: tgather.apply_gather_ray(p, fmap, uv,
+                                                               z))
+    assert (tgather.apply_gather_ray.launches, tray.apply_ray.launches,
+            mix_rows.launch_mix_rows.launches) == (
+                before[0] + 1, before[1], before[2] + 1)
+    ours = [(n, c) for n, c in kernels if "mlp" in n or "mix_rows" in n]
+    assert len(ours) == 2 and all(c == 1 for _, c in ours), ours
+    assert any("wgmma_mlp_kernel" in n and "RayEpilogue" in n
+               for n, _ in ours), ours
+    assert any("mix_rows_kernel" in n for n, _ in ours), ours

@@ -77,8 +77,10 @@ def setup():
     tree = lambda p: jax.tree.map(lambda a: np.asarray(a, np.float32),
                                   p["params"])
     return {"images": images, "jax": (jg, jc, pg, pc),
-            "port": (weights.build_net(CN(_opts("G")), tree(pg)),
-                     weights.build_net(CN(_opts("C")), tree(pc)))}
+            "port": (weights.build_net(CN(_opts("G")), tree(pg),
+                                       device="cpu"),
+                     weights.build_net(CN(_opts("C")), tree(pc),
+                                       device="cpu"))}
 
 
 def _engines(setup, recon=RECON, **flat):

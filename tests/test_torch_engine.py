@@ -61,8 +61,8 @@ def setup():
                  feat_prior=jnp.zeros((1, 32, 32, 64)))
     tree = lambda p: jax.tree.map(lambda a: np.asarray(a, np.float32),
                                   p["params"])
-    tg = weights.build_net(CN(_opts("G")), tree(pg))
-    tc = weights.build_net(CN(_opts("C")), tree(pc))
+    tg = weights.build_net(CN(_opts("G")), tree(pg), device="cpu")
+    tc = weights.build_net(CN(_opts("C")), tree(pc), device="cpu")
     return {"image": image, "calib": calib, "jax": (jg, jc, pg, pc),
             "port": (tg, tc)}
 
@@ -117,6 +117,10 @@ def test_engine_without_device_needs_cuda(setup, monkeypatch):
         ReconEngine(tg, tc, config=cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         weights.load_default_networks()
+    _, _, pg, _ = setup["jax"]
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32), pg["params"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        weights.build_net(CN(_opts("G")), params)
 
 
 def test_other_paths_raise_naming_their_roadmap_item():

@@ -55,8 +55,10 @@ def nets():
     vg = jg.init(jax.random.PRNGKey(0), image, pts, calib)
     vc = jc.init(jax.random.PRNGKey(1), image, pts, calib,
                  feat_prior=jnp.zeros((1, 16, 16, 64)))
-    tg = weights.build_net(CN(_opts("G")), _np_tree(vg["params"]))
-    tc = weights.build_net(CN(_opts("C")), _np_tree(vc["params"]))
+    tg = weights.build_net(CN(_opts("G")), _np_tree(vg["params"]),
+                           device="cpu")
+    tc = weights.build_net(CN(_opts("C")), _np_tree(vc["params"]),
+                           device="cpu")
     return {"image": np.array(image), "G": (jg, vg, tg),
             "C": (jc, vc, tc)}
 

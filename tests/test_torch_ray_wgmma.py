@@ -21,41 +21,15 @@ from monoport_tpu.ops.pallas import fused_ray_mlp as jray
 from monoport_tpu_torch.models.heads import SurfaceClassifier
 from monoport_tpu_torch.ops.cuda import build, wgmma
 from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
-from monoport_tpu_torch.ops.cuda.fused_ray_mlp import _activate
+from torch_wgmma_walk import HEADS
+from torch_wgmma_walk import make_head as _head
+from torch_wgmma_walk import split_bwz as _split_bwz
+from torch_wgmma_walk import walk as _walk
 
 torch.set_num_threads(2)
-HEADS = {"netG": ((257, 1024, 512, 256, 128, 1), "sigmoid"),
-         "netC": ((513, 1024, 512, 256, 128, 3), "tanh"),
-         "narrow": ((65, 96, 64, 48, 1), "sigmoid")}
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"f32": dict(atol=2e-5, rtol=1e-4), "bf16": dict(atol=2e-2, rtol=0)}
-
-
-def _params(chans, seed=11):
-    """Seeded skip-concat head params in the JAX layout: kernel [fan_in,
-    out], the input (z last) after the previous layer's output."""
-    rng = np.random.RandomState(seed)
-    params = {}
-    for i in range(len(chans) - 1):
-        fan_in = chans[i] + (chans[0] if i else 0)
-        params[f"filters_{i}"] = {
-            "kernel": (rng.randn(fan_in, chans[i + 1])
-                       / np.sqrt(fan_in)).astype(np.float32),
-            "bias": (rng.randn(chans[i + 1]) * 0.1).astype(np.float32)}
-    return params
-
-
-def _head(name):
-    chans, last_op = HEADS[name]
-    params = _params(chans)
-    head = SurfaceClassifier(chans, last_op=last_op)
-    with torch.no_grad():
-        for i, lin in enumerate(head.layers()):
-            lin.weight.copy_(torch.from_numpy(
-                params[f"filters_{i}"]["kernel"].T))
-            lin.bias.copy_(torch.from_numpy(params[f"filters_{i}"]["bias"]))
-    return head, params
 
 
 def _inputs(p, rays, taps, seed=3):
@@ -63,12 +37,6 @@ def _inputs(p, rays, taps, seed=3):
     return (torch.from_numpy(rng.randn(1, rays, p.c_f).astype(np.float32)),
             torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps)).astype(
                 np.float32)))
-
-
-def _split_bwz(bwz):
-    """{b, b, w_z, w_z} a column pair -> (b, w_z)."""
-    q = bwz.view(-1, 4)
-    return q[:, :2].reshape(-1), q[:, 2:].reshape(-1)
 
 
 @pytest.mark.parametrize("name", sorted(HEADS))
@@ -102,39 +70,6 @@ def test_ray_stream_inverts_to_wf_wh_b_and_wz(name):
         boff += n_k
     assert pos == p.tiles.numel() and 2 * boff == p.tile_bwz.numel()
     assert p.tile_bwz.dtype == torch.float32 and wz.abs().sum() > 0
-
-
-def _walk(p, tiles, b, wz, widths, feat, z):
-    """The kernel's schedule in plain PyTorch, one tap at a time as a block
-    runs: the producer's stage order over the stream, A from h or from the
-    feature tile, sums in f32, the epilogue ``acc + (z * w_z + b)`` in f32,
-    the activation, h rounded to the operand dtype at its kernel width."""
-    xr = tray.pad_feat(p, feat).reshape(-1, p.widths[0])
-    zr = z.reshape(xr.shape[0], -1).float()
-    c, last, bk = p.widths[0], len(widths) - 1, wgmma.BK
-    outs = []
-    for t in range(zr.shape[1]):
-        h = torch.zeros(xr.shape[0], max(widths), dtype=p.dtype)
-        pos = boff = 0
-        for i, n in enumerate(widths):
-            pn = min(n, wgmma.PASS_N)
-            nh = widths[i - 1] // bk if i else 0
-            acc = torch.zeros(xr.shape[0], n)
-            for pass_ in range(n // pn):
-                for kt in range(nh + c // bk):
-                    w = wgmma.untile_layout(tiles[pos:pos + pn * bk], pn, bk)
-                    pos += pn * bk
-                    a = (h[:, kt * bk:(kt + 1) * bk] if kt < nh else
-                         xr[:, (kt - nh) * bk:(kt - nh + 1) * bk])
-                    cols = slice(pass_ * pn, (pass_ + 1) * pn)
-                    acc[:, cols] += a.float() @ w.float().t()
-            term = zr[:, t:t + 1] * wz[boff:boff + n] + b[boff:boff + n]
-            v = _activate(acc + term, i == last, p.last_op)
-            boff += n
-            if i < last:
-                h[:, :n] = v.to(p.dtype)
-        outs.append(v[:, :p.out_dim])
-    return torch.stack(outs, 1).reshape(*z.shape, p.out_dim)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -90,11 +90,12 @@ def setup():
                  feat_prior=jnp.zeros((1, 32, 32, 64)))
     tree = lambda p: jax.tree.map(lambda a: np.asarray(a, np.float32),
                                   p["params"])
-    tg = weights.build_net(CN(_opts("G")), tree(pg))
-    tc = weights.build_net(CN(_opts("C")), tree(pc))
+    tg = weights.build_net(CN(_opts("G")), tree(pg), device="cpu")
+    tc = weights.build_net(CN(_opts("C")), tree(pc), device="cpu")
     # the perspective net shares netG's weights (projection has none)
     jp = JaxNet(JCN(_opts("G", "perspective")))
-    tp = weights.build_net(CN(_opts("G", "perspective")), tree(pg))
+    tp = weights.build_net(CN(_opts("G", "perspective")), tree(pg),
+                           device="cpu")
     return {"image": image, "jax": (jg, jc, pg, pc), "port": (tg, tc),
             "persp": (jp, tp)}
 
