@@ -62,7 +62,20 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    ``frames()``; each output equals the ``frame()`` of that input;
 10. gather A/B: ``profile_gather.run``, the gathering kernel's entry
     point: ``index`` -> ray MLP, the gather inside the kernel, and the
-    ``index_grid`` lattice -> ray MLP at two frame shapes.
+    ``index_grid`` lattice -> ray MLP at two frame shapes;
+11. serve: the demo server, ``apps/rtl_main`` at its default profile
+    (committed netG + netC in bf16, MatteNet and DetectNet loaded, not the
+    box prior), an MJPEG server on 127.0.0.1 (port 0), ``main_loop`` over
+    ``SERVE_FRAMES`` copies of the serve golden's raw frame held in memory
+    (the orbit camera's AUTO poses): the launch counts zeroed just before
+    and read just after, held to what each served pose's anchor plan
+    implies; no stream sync in the device stage; ``/`` and two
+    ``/video_feed`` parts fetched with the standard library (SOI, EOI, a
+    256x256 SOF0 each); the first served frame's packed display held to
+    the serve golden at the rotated bf16 limits (one uint8 step wider) and
+    the card's matte within 2e-2 of the golden's; served frames a second,
+    the stages' ms, the JPEG encoder's ms; then ``apps/infer``'s
+    ``reconstruct_image`` on the same frame: faces, closed share, seconds.
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -102,6 +115,8 @@ ROUTES = {("fused_ray_mlp", "bf16"): "sm90_wgmma",
           ("fused_gather_mlp", "bf16"): "sm90_mix_wgmma"}
 # rows a block of the f32 layer kernel (F32Cfg::BM, csrc/mlp_tiles.cuh)
 F32_BLOCK_ROWS = 32
+# frames the serve phase streams through the demo's pipeline
+SERVE_FRAMES = 8
 
 
 def emit(obj: dict) -> None:
@@ -717,6 +732,22 @@ def as_golden(out: dict) -> dict:
             for k, v in out.items()}
 
 
+def closed_share(verts, faces, res: int) -> tuple[int, int, float]:
+    """(edges, edges away from the volume's border, the share of those
+    shared by exactly two faces) of a mesh from a res^3 volume over
+    [-1, 1]^3."""
+    import numpy as np
+
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                    faces[:, [2, 0]]]), axis=1)
+    uniq, n_shared = np.unique(edges, axis=0, return_counts=True)
+    step = 2.0 / (res - 1)
+    inner = (np.abs(verts) < 1.0 - 1.5 * step).all(axis=1)
+    away = inner[uniq[:, 0]] & inner[uniq[:, 1]]
+    closed = float((n_shared[away] == 2).mean()) if away.any() else 0.0
+    return int(len(uniq)), int(away.sum()), closed
+
+
 def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     """The dense frame, its mesh, the hierarchy frame and a clip. ->
     launches by kernel over the dense and hierarchy runs."""
@@ -844,16 +875,10 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     verts, faces = extract_mesh(out32["sdf"], recon32.balance_value,
                                 b_min=recon32.b_min, b_max=recon32.b_max)
     mesh_ms = (time.perf_counter() - t0) * 1e3
-    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
-                                    faces[:, [2, 0]]]), axis=1)
-    uniq, n_shared = np.unique(edges, axis=0, return_counts=True)
-    step = 2.0 / (res - 1)
-    inner = (np.abs(verts) < 1.0 - 1.5 * step).all(axis=1)
-    away = inner[uniq[:, 0]] & inner[uniq[:, 1]]
-    closed = float((n_shared[away] == 2).mean()) if away.any() else 0.0
+    n_edges, n_away, closed = closed_share(verts, faces, res)
     emit({"phase": "mesh", "vertices": int(len(verts)),
-          "faces": int(len(faces)), "edges": int(len(uniq)),
-          "edges_away_from_border": int(away.sum()),
+          "faces": int(len(faces)), "edges": n_edges,
+          "edges_away_from_border": n_away,
           "edges_shared_by_two_faces": closed, "extract_ms": mesh_ms})
     if len(faces) < 1000 or closed < 0.999:
         fail(f"the mesh is not closed: {len(faces)} faces, {closed} of the "
@@ -967,6 +992,174 @@ def gather_phase(counters: dict) -> int:
     return launches["fused_gather_mlp"]
 
 
+def read_part(res) -> bytes:
+    """One JPEG part of a multipart MJPEG response (after the CRLF that
+    ends the part before it)."""
+    line = res.readline()
+    if line == b"\r\n":
+        line = res.readline()
+    if line != b"--frame\r\n":
+        fail(f"an MJPEG part starts with {line[:40]!r}, not its boundary")
+    if not res.readline().lower().startswith(b"content-type: image/jpeg"):
+        fail("an MJPEG part is not image/jpeg")
+    res.readline()
+    data = b""
+    while not data.endswith(b"\xff\xd9"):
+        byte = res.read(1)
+        if not byte:
+            fail("an MJPEG part ended before its EOI marker")
+        data += byte
+    return data
+
+
+def jpeg_size(data: bytes) -> tuple[int, int]:
+    """(height, width) of a JPEG's SOF0; fails on anything else."""
+    if data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
+        fail("a served part lacks its SOI / EOI markers")
+    i = 2
+    while i + 4 <= len(data):
+        marker, n = data[i + 1], int.from_bytes(data[i + 2:i + 4], "big")
+        if marker == 0xC0:
+            return (int.from_bytes(data[i + 5:i + 7], "big"),
+                    int.from_bytes(data[i + 7:i + 9], "big"))
+        i += 2 + n
+    fail("a served part has no SOF0 (baseline) header")
+
+
+def serve_phase(counters: dict, card: str) -> dict:
+    """The demo server on the card (phase 11). -> launches by kernel."""
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.apps import infer, rtl_main
+
+    golden = frame_check.load_golden(frame_check.GOLDEN_SERVE)
+    frame = golden["frame"].astype(np.float32) / 255.0
+    args, cfg = rtl_main.parse_args(["--camera"])
+    if cfg.tpu.compute_dtype != "bfloat16":
+        fail(f"the demo profile computes in {cfg.tpu.compute_dtype}")
+    state = rtl_main.FrameState()
+    server = rtl_main.make_server(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    served, stamps = [], []
+
+    def on_frame(d):
+        served.append(d)
+        stamps.append(time.perf_counter())
+
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        n = rtl_main.main_loop(args, cfg, state,
+                               stream=[frame] * SERVE_FRAMES,
+                               on_frame=on_frame)
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        pipeline = state.pipeline
+        seg, eng = pipeline.segmentation, pipeline.engine
+        if seg.net is None or seg.detector is None:
+            fail("the demo's segmenter fell back to the box prior")
+        if n != SERVE_FRAMES:
+            fail(f"the demo served {n} of {SERVE_FRAMES} frames")
+
+        # every served pose's launches, from its anchor plan
+        expect = dict.fromkeys(counters, 0)
+        plans = []
+        for d in served:
+            if eng._calib_taps_ok(d["calib"]):
+                fail("an AUTO pose took the ray-tap path")
+            plan = eng._rot_anchor_plan(d["calib"], frame.shape[0])
+            plans.append([k or 0 for k in plan])
+            expect["fused_mlp"] += 1 + sum(1 for k in plan if not k)
+            expect["fused_anchor_mlp"] += sum(1 for k in plan if k)
+            expect["mix_rows"] += sum(1 for k in plan if k)
+        if launches != expect:
+            fail(f"the served frames launched {launches}, their poses' "
+                 f"plans imply {expect}")
+        segment, device_frame, _ = pipeline.processors
+        d = segment(frame)
+        torch.cuda.synchronize()
+        syncs = find_syncs(lambda: device_frame(d))
+        if syncs:
+            fail(f"the device stage synchronised the stream at {syncs}")
+
+        # the server: the page and two stream parts
+        port = server.server_address[1]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("GET", "/")
+        page = conn.getresponse()
+        body = page.read()
+        conn.close()
+        if page.status != 200 or b"/video_feed" not in body:
+            fail(f"'/' answered {page.status}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("GET", "/video_feed")
+        res = conn.getresponse()
+        parts = [read_part(res) for _ in range(2)]
+        conn.close()
+        sizes = [jpeg_size(p) for p in parts]
+        if res.status != 200 or sizes != [(256, 256)] * 2:
+            fail(f"/video_feed answered {res.status}, parts {sizes}")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # the first served frame against the JAX app's (f32, CPU)
+    first = served[0]
+    if not np.array_equal(first["calib"], golden["calib"]):
+        fail("the first served pose is not the serve golden's")
+    limits = frame_check.BF16_ROTATED_LIMITS
+    res = frame_check.compare_display(first, golden, limits)
+    matte = float(np.abs(first["segm"][0, ..., 3].float().cpu().numpy()
+                         - golden["segm_alpha"]).max())
+    box = first["bboxes"][0].cpu().numpy().tolist()
+    gaps = np.diff(stamps[1:])
+    stages = {st.name: {"median_ms": st.median_ms, "ema_ms": st.ema_ms,
+                        "ms": list(st.recent_ms), "frames": st.frames}
+              for st in pipeline.stats}
+    emit({"phase": "serve", "dtype": "bf16", "frames": n, "wall_s": wall,
+          "served_fps": (len(stamps) - 2) / (stamps[-1] - stamps[1]),
+          "frame_gap_ms_median": float(np.median(gaps)) * 1e3,
+          "stages": stages,
+          "jpeg_ms": [d["jpeg_ms"] for d in served],
+          "jpeg_ms_median": statistics.median(d["jpeg_ms"] for d in served),
+          "jpeg_bytes": len(parts[0]), "anchor_plans": plans,
+          "launches": launches, "launches_expected": expect,
+          "device_stage_syncs": len(syncs),
+          "matte_max_diff": matte, "bbox": box,
+          "golden_bbox": golden["bbox"].tolist(), **res,
+          "limits": limits._asdict(), "card": card})
+    print(pipeline.report(), flush=True)
+    if not res["ok"]:
+        fail(f"the first served frame disagrees with the serve golden: {res}")
+    if matte > 2e-2:
+        fail(f"the card's matte is {matte} from the serve golden's")
+
+    # single image -> mesh on the same frame (plain heads, f32)
+    _, icfg = infer.parse_args(["--image", "in-memory"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verts, faces, colors = infer.reconstruct_image(frame, icfg)
+    seconds = time.perf_counter() - t0
+    n_edges, n_away, closed = closed_share(verts, faces,
+                                           icfg.recon.resolutions[-1])
+    emit({"phase": "infer", "vertices": int(len(verts)),
+          "faces": int(len(faces)), "edges_away_from_border": n_away,
+          "edges_shared_by_two_faces": closed, "seconds": seconds,
+          "colored": colors is not None, "card": card})
+    if len(faces) < 1000 or closed < 0.999 or colors is None \
+            or not np.isfinite(colors).all():
+        fail(f"infer's mesh: {len(faces)} faces, {closed} closed, colours "
+             f"{'absent' if colors is None else 'present'}")
+    return launches
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, its shapes on the main path
     ("fused_ray_mlp", "fused_ray_mlp.cu",
@@ -1055,6 +1248,8 @@ def main() -> int:
     for name, n in dense_phases(netG, netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     launches["fused_gather_mlp"] = gather_phase(counters)
+    for name, n in serve_phase(counters, card).items():
+        launches[name] = launches.get(name, 0) + n
 
     emit(kernels_line(rows, launches))
     print(card, flush=True)

@@ -17,7 +17,10 @@ plan and ``compact_dropped`` of that frame; ``data/frame_golden_dense.npz``
 the frontal frame of ``quality_config`` with its ``recon_counts`` and its
 257^3 volume ``sdf`` at every ``SDF_STRIDE``-th voxel (65^3), without the
 image, which is the frontal golden's (all written by
-``python tests/test_torch_frame_golden.py --write``). ``compare_to_golden``
+``python tests/test_torch_frame_golden.py --write``). ``data/serve_golden.npz``
+holds the JAX demo app's f32 stages on one raw capsule frame (``python
+tests/test_torch_app.py --write``); ``compare_display`` holds a served
+frame's packed display to it. ``compare_to_golden``
 holds a port frame to a golden with fractions, not a max error: the
 4-stack backbone sums in another order on each device, and a crossing
 near a knife-edge amplifies that.
@@ -42,6 +45,8 @@ GOLDEN_ROTATED = os.path.join(os.path.dirname(__file__), "data",
                               "frame_golden_rotated.npz")
 GOLDEN_DENSE = os.path.join(os.path.dirname(__file__), "data",
                             "frame_golden_dense.npz")
+GOLDEN_SERVE = os.path.join(os.path.dirname(__file__), "data",
+                            "serve_golden.npz")
 ROTATED_POSE = (20.0, 10.0)          # orbit yaw, pitch in degrees
 SDF_STRIDE = 4                       # the dense golden's volume subsampling
 QUALITY_RESOLUTIONS = (17, 33, 65, 129, 257)
@@ -76,6 +81,13 @@ BF16_ROTATED_LIMITS = Limits(0.01, 0.6, 0.06, 2e-3, 0.995)
 # is coarser than a ray frame's (measured on an H100: depth 1.088 voxels,
 # render_norm 0.0599, render_tex 1.13e-3; 1 - IOU 0.12%, held to 1%)
 BF16_DENSE_LIMITS = Limits(0.01, 2.0, 0.12, 2.5e-3, 0.995)
+
+
+# the f32 served frame against the serve golden: its input is the port's
+# own matte, 1.5e-4 from the JAX app's on the CPU, which moves the depth by
+# up to 3.9e-3 fine voxels (p99.5 2.4e-3, 98.6% within 2e-3); the renders
+# and the silhouette as F32_LIMITS
+F32_SERVE_LIMITS = F32_LIMITS._replace(depth_atol=5e-3)
 
 
 def rtl_config(compute_dtype: torch.dtype = torch.bfloat16):
@@ -152,6 +164,26 @@ def compare_to_golden(out: dict, golden: dict,
                              for k in errs)
                      and all(np.isfinite(get(k)).all() for k in errs))
     return res
+
+
+def compare_display(d: dict, golden: dict,
+                    limits: Limits = F32_LIMITS) -> dict:
+    """A served frame (the demo pipeline's output: ``display_host``, the
+    fetched [S, S, 8] uint8 packed display, and the frame's ``depth`` /
+    ``valid``) against the serve golden's, by ``compare_to_golden`` with the
+    render tolerances widened by one uint8 step (two renders within 1e-5
+    may truncate to neighbouring levels)."""
+    def maps(packed, depth, valid):
+        planes = torch.from_numpy(np.asarray(packed, np.float32) / 255.0)
+        return {"valid": torch.as_tensor(valid), "depth": torch.as_tensor(
+            depth), "render_norm": planes[..., 0:3],
+            "render_tex": planes[..., 3:6]}
+    out = maps(d["display_host"], d["depth"], d["valid"])
+    ref = {k: v.numpy() for k, v in maps(
+        golden["display_packed"], golden["depth"], golden["valid"]).items()}
+    step = 1.0 / 255.0
+    return compare_to_golden(out, ref, limits._replace(
+        norm_atol=limits.norm_atol + step, tex_atol=limits.tex_atol + step))
 
 
 def compare_sdf(out: dict, golden: dict, atol: float = 2e-3,

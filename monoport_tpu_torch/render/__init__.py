@@ -1,3 +1,10 @@
-from .camera import make_rotate, orbit_extrinsic
+from .camera import (BaseCamera, CameraPose, PerspectiveCamera, make_rotate,
+                     orbit_extrinsic)
+from .rasterizer import (AlbedoRender, NormalRender, PrtRender, ShRender,
+                         rasterize)
+from .sh import evaluate_sh_basis, sh_rotation_matrix
 
-__all__ = ["make_rotate", "orbit_extrinsic"]
+__all__ = ["BaseCamera", "CameraPose", "PerspectiveCamera", "make_rotate",
+           "orbit_extrinsic", "rasterize", "AlbedoRender", "NormalRender",
+           "ShRender", "PrtRender", "evaluate_sh_basis",
+           "sh_rotation_matrix"]

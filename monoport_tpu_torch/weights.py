@@ -5,7 +5,9 @@
 flax parameter tree to the port's ``state_dict`` names and layouts:
 Conv HWIO -> OIHW, Dense [in, out] -> Linear [out, in], GroupNorm
 ``scale/bias`` -> ``weight/bias``. The port's modules carry the flax
-module names, so the rename is mechanical.
+module names, so the rename is mechanical; ``load_module`` loads such a
+tree into any of them (MonoPortNet through ``build_net``, MatteNet,
+DetectNet; their checkpoints carry ``width`` / ``stride`` in the meta).
 
 The committed capsule-trained weights are not copied into the port's
 package: ``load_default_networks`` reads them from ``DATA``, the JAX
@@ -56,7 +58,10 @@ def _flatten(tree: Any, prefix: str = ""):
 
 
 def torch_state_from_flax(params: Any) -> dict[str, torch.Tensor]:
-    """Flax param tree (numpy leaves) -> torch ``state_dict`` (f32)."""
+    """Flax param tree (numpy leaves; a top-level ``params`` collection is
+    unwrapped) -> torch ``state_dict`` (f32)."""
+    if set(params) == {"params"}:
+        params = params["params"]
     state = {}
     for name, value in _flatten(params):
         base, leaf = name.rsplit(".", 1)
@@ -86,10 +91,19 @@ def build_net(opt_net, params: Any,
     ``params`` tree: {'image_filter': ..., 'surface_classifier': ...}),
     loaded strictly, in eval mode, on ``device`` (``resolve_device``:
     the card unless the caller asks for another device)."""
-    device = resolve_device(device)
     net = MonoPortNet(opt_net, head_channels=head_channels(params))
-    net.load_state_dict(torch_state_from_flax(params), strict=True)
-    return net.eval().to(device)
+    return load_module(net, params, device)
+
+
+def load_module(module: torch.nn.Module, params: Any,
+                device: Optional[torch.device | str] = None
+                ) -> torch.nn.Module:
+    """``module`` with a flax ``params`` tree loaded strictly, in eval mode,
+    without gradients, on ``device`` (``resolve_device``)."""
+    device = resolve_device(device)
+    module.load_state_dict(torch_state_from_flax(params), strict=True)
+    module.requires_grad_(False)
+    return module.eval().to(device)
 
 
 def resolve_device(device: Optional[torch.device | str]) -> torch.device:

@@ -1,6 +1,7 @@
-"""PyTorch port, isolation: every module of monoport_tpu_torch and
-chip_smoke.py import without pulling in jax or monoport_tpu (checked in a
-fresh interpreter, since this test process has both loaded)."""
+"""PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
+perception, render and host pipeline included) and chip_smoke.py import
+without pulling in jax or monoport_tpu (checked in a fresh interpreter,
+since this test process has both loaded)."""
 
 import os
 import subprocess
@@ -20,6 +21,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "monoport_tpu"))
 print(len(mods), bad)
 assert len(mods) >= 20, mods
+assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
+        "monoport_tpu_torch.pipeline.segmentation",
+        "monoport_tpu_torch.render.rasterizer"} <= set(mods), mods
 assert not bad, bad
 """
 
