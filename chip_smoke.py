@@ -75,7 +75,22 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     the serve golden at the rotated bf16 limits (one uint8 step wider) and
     the card's matte within 2e-2 of the golden's; served frames a second,
     the stages' ms, the JPEG encoder's ms; then ``apps/infer``'s
-    ``reconstruct_image`` on the same frame: faces, closed share, seconds.
+    ``reconstruct_image`` on the same frame: faces, closed share, seconds;
+12. backbones: the committed netG and netC written as legacy PIFu files
+    (reference key names, ``tests/torch_reference_state.py``) and read by
+    ``rtl_main.load_networks``: every tensor equal to the committed nets',
+    their bf16 frontal frame equal to phase 4's; then the alternative
+    netGs (``ALT_NETGS``: HRNetV2_W18_small_v2_balance_last, the
+    multi-level HRNetV2_W18_small_v2 with a 271-wide head, Yolov4Filters;
+    BatchNorm, numpy-seeded weights) saved as reference-layout checkpoints
+    and read with ``norm: batch`` (no netC, as the app loads none for
+    them): the f32 backbone against the JAX golden
+    (``frame_check.compare_backbone``), bf16 frontal frames timed (the
+    counts zeroed and read again: the ray MLP for the march and each
+    refine, no other kernel, no stream sync), the profile, the backbone's
+    device ms beside the committed HGFilter's, and an f32 and the bf16
+    frame held to the f32 frame through the plain kernels on the card.
+    The kernel phase's last rows run kernels 1-3 on a seeded 271-wide head.
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -303,6 +318,32 @@ def hat_weights(rng, rays: int, taps: int, anchors: int):
     return np.maximum(0.0, 1.0 - np.abs(pos)).astype(np.float32)
 
 
+def reference_helper():
+    """``tests/torch_reference_state.py`` of the checkout: seeded weights
+    and reference-layout (PIFu) checkpoints, without JAX."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_reference_state
+    return torch_reference_state
+
+
+def wide_head_net():
+    """The multi-level HRNet netG's numpy-seeded 271-1024-512-256-128-1
+    occupancy head (phase 12's, ``alt_netg_state``) on the card, as a net
+    the kernel phase packs."""
+    import types
+
+    from monoport_tpu_torch.models.heads.surface_classifier import (
+        SurfaceClassifier)
+
+    state = reference_helper().alt_netg_state("HRNetV2_W18_small_v2")
+    head = SurfaceClassifier((271, 1024, 512, 256, 128, 1), "sigmoid")
+    head.load_state_dict({k.split(".", 1)[1]: v for k, v in state.items()
+                          if k.startswith("surface_classifier.")})
+    return types.SimpleNamespace(surface_classifier=head.cuda().eval())
+
+
 def kernel_phase(netG, netC, tray, tmlp, tgather):
     """Every kernel vs its plain version at the shapes of the frames, the
     hierarchy levels and the gather A/B."""
@@ -342,10 +383,19 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
     have = {s[3] for s in shapes if s[0] == "fused_mlp" and s[2] is netG}
     shapes += [("fused_mlp", f"level_{n}", netG, n, 1, 1)
                for n in sorted(levels - have)]
+    # the multi-level HRNet netG's head (input 271: 270 feature channels,
+    # padded to 288 in the kernels) at the frontal refine 257 and the
+    # hierarchy's anchored refine 257
+    wide = wide_head_net()
+    shapes += [("fused_ray_mlp", "refine257_c271", wide, 192 * 192, 6, 1),
+               ("fused_mlp", "refine257_points_c271", wide, 192 * 192 * 6,
+                1, 1),
+               ("fused_anchor_mlp", "refine257_window_c271", wide, 192 * 192,
+                6, HIERARCHY_ANCHORS)]
     rows = []
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         packs = {}
-        for n in (netG, netC):
+        for n in {id(s[2]): s[2] for s in shapes}.values():
             packs[id(n), "ray"] = tray.pack_ray_mlp_params(
                 n.surface_classifier, dtype=dtype, device="cuda")
             packs[id(n), "point"] = tmlp.pack_mlp_params(
@@ -553,8 +603,8 @@ def timed_frames(eng, image, calib, counters: dict, expect: dict,
         fail(f"{view} frame output shapes {got}")
     depth = out["depth"][out["valid"]] if depth_on_valid else out["depth"]
     finite = {"depth": depth,
-              "render_norm": out["render_norm"],
-              "render_tex": out["render_tex"]}
+              **{k: out[k] for k in ("render_norm", "render_tex")
+                 if k in out}}
     for k, v in finite.items():
         if not torch.isfinite(v).all():
             fail(f"bf16 {view} frame: non-finite {k}")
@@ -619,6 +669,7 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
          "fused_gather_mlp": 0, "mix_rows": 0},
         "frontal", card)
     total = {"fused_ray_mlp": launches["fused_ray_mlp"]}
+    frontal = out
     profile_phase(eng, image, golden["calib"], card, med, "frontal")
     golden_phase(eng32, out, image, golden, frame_check.BF16_LIMITS,
                  "frontal", card)
@@ -666,7 +717,7 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
     if dropped32 != rotated["compact_dropped"].tolist():
         fail(f"f32 rotated frame dropped {dropped32}, the golden "
              f"{rotated['compact_dropped'].tolist()}")
-    return total
+    return total, frontal
 
 
 @contextlib.contextmanager
@@ -1160,6 +1211,170 @@ def serve_phase(counters: dict, card: str) -> dict:
     return launches
 
 
+def legacy_phase(netG, netC, frontal: dict, card: str) -> None:
+    """Phase 12, legacy checkpoints: the committed nets written as legacy
+    PIFu files (reference key names) and read back through
+    ``rtl_main.load_networks``: every tensor equal to the committed nets',
+    and their bf16 frontal frame equal to phase 4's."""
+    import tempfile
+
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.apps import rtl_main
+    from monoport_tpu_torch.engine import ReconEngine
+
+    helper = reference_helper()
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = []
+        for key, net in (("netG", netG), ("netC", netC)):
+            path = os.path.join(tmp, f"{key}.pth")
+            state = {k: v.cpu() for k, v in net.state_dict().items()}
+            torch.save(helper.reference_state(
+                state, net.opt_net.backbone.IMF), path)
+            opts += [f"{key}.ckpt_path", path]
+        _, cfg = rtl_main.parse_args(["--camera", "--"] + opts)
+        t0 = time.perf_counter()
+        loaded = rtl_main.load_networks(cfg)
+        load_s = time.perf_counter() - t0
+    if loaded[1] is None:
+        fail("load_networks loaded no netC from its checkpoint")
+    differ = [f"{key}.{k}" for key, net, got in zip(
+        ("netG", "netC"), (netG, netC), loaded)
+        for k, v in net.state_dict().items()
+        if not torch.equal(got.state_dict()[k], v)]
+    golden = frame_check.load_golden()
+    image = torch.from_numpy(golden["image"]).cuda()
+    recon, cfg_e = frame_check.rtl_config(torch.bfloat16)
+    out = ReconEngine(*loaded, recon=recon, config=cfg_e).frame(
+        image, image, golden["calib"])
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(out[k], frontal[k])) for k in FRAME_SHAPES}
+    emit({"phase": "legacy_checkpoint", "load_s": load_s,
+          "tensors": sum(len(n.state_dict()) for n in loaded),
+          "tensors_differing": differ, "frame_bit_equal_to_phase4": same,
+          "card": card})
+    if differ:
+        fail(f"the legacy checkpoints loaded other tensors: {differ[:5]}")
+    if not all(same.values()):
+        fail(f"the legacy checkpoints' frame differs from phase 4's: {same}")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time a call of ``fn`` (torch.profiler's kernel times summed
+    over ``reps`` calls after a warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+
+
+def backbones_phase(netG, counters: dict, card: str) -> dict:
+    """Phase 12, the alternative backbones at full width: each netG of
+    ``ALT_NETGS`` (HRNet / Yolov4, BatchNorm, numpy-seeded weights) saved
+    as a reference-layout checkpoint and read by ``load_networks`` with
+    ``norm: batch`` (no netC, as the app loads none for it); its f32
+    backbone against the JAX golden; bf16 frontal frames timed (the ray
+    MLP's launches counted, no other kernel of ours, no stream sync) and
+    profiled; an f32 and the bf16 frame held to the f32 frame through the
+    plain kernels on the card. The backbones' device time beside the
+    committed HGFilter's. -> launches by kernel."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.apps import rtl_main
+    from monoport_tpu_torch.engine import ReconEngine
+
+    helper = reference_helper()
+    golden = frame_check.load_golden()
+    golden_bb = frame_check.load_golden(frame_check.GOLDEN_BACKBONE)
+    image = torch.from_numpy(golden["image"]).cuda()
+    calib = golden["calib"]
+    shapes = {k: v for k, v in FRAME_SHAPES.items() if k != "render_tex"}
+    recon, cfg_e = frame_check.rtl_config(torch.bfloat16)
+    # the ray MLP: the 33^2 march, then the refines 33 -> 65 -> 257 (the
+    # colour query needs netC)
+    expect = dict.fromkeys(counters, 0)
+    expect["fused_ray_mlp"] = len(cfg_e.ray.march_levels) + 1
+    total = dict.fromkeys(counters, 0)
+    with torch.inference_mode():
+        hg = copy.deepcopy(netG.image_filter).to(torch.bfloat16)
+        emit({"phase": "backbone_ms", "backbone": "PIFuHGFilters",
+              "bf16_device_ms": device_ms(
+                  lambda: hg(image.to(torch.bfloat16)), 5), "card": card})
+        del hg
+    for imf in helper.ALT_NETGS:
+        state = helper.alt_netg_state(imf)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "net_G")
+            torch.save(helper.reference_state(state, imf), path)
+            _, cfg = rtl_main.parse_args(
+                ["--camera", "--", "netG.backbone.IMF", imf,
+                 "netG.backbone.norm", "batch", "netG.ckpt_path", path])
+            net, net_c = rtl_main.load_networks(cfg)
+        if net_c is not None:
+            fail(f"load_networks loaded a netC beside the {imf} netG")
+        differ = [k for k, v in state.items()
+                  if not torch.equal(net.state_dict()[k].cpu(), v)]
+        if differ:
+            fail(f"{imf}: the checkpoint loaded other tensors {differ[:5]}")
+        with torch.inference_mode():
+            levels = frame_check.backbone_levels(net.image_filter(image))
+        res = frame_check.compare_backbone(levels, golden_bb, imf)
+        view = f"frontal_{imf}"
+        emit({"phase": "backbone_golden", "backbone": imf, "dtype": "f32",
+              **res, "head_input": net.surface_classifier.filter_channels[0],
+              "card": card})
+        if not res["ok"]:
+            fail(f"{imf}'s f32 output disagrees with the JAX golden: {res}")
+
+        eng = ReconEngine(net, None, recon=recon, config=cfg_e)
+        out, med, launches = timed_frames(eng, image, calib, counters,
+                                          expect, view, card, shapes)
+        for k, n in launches.items():
+            total[k] += n
+        profile_phase(eng, image, calib, card, med, view)
+        image16 = image.to(torch.bfloat16)
+        with torch.inference_mode():
+            bb_ms = {"bf16_device_ms": device_ms(
+                lambda: eng.netG.image_filter(image16), 5),
+                "f32_device_ms": device_ms(
+                    lambda: net.image_filter(image), 3)}
+        emit({"phase": "backbone_ms", "backbone": imf, **bb_ms,
+              "card": card})
+
+        recon32, cfg32 = frame_check.rtl_config(torch.float32)
+        eng32 = ReconEngine(net, None, recon=recon32, config=cfg32)
+        out32 = eng32.frame(image, None, calib)
+        with plain_kernels():
+            want = as_golden(eng32.frame(image, None, calib))
+        torch.cuda.synchronize()
+        for dname, got, limits in (("f32", out32, frame_check.F32_LIMITS),
+                                   ("bf16", out, frame_check.BF16_LIMITS)):
+            cmp = frame_check.compare_to_golden(got, want, limits)
+            emit({"phase": "backbone_vs_plain", "backbone": imf,
+                  "dtype": dname, **cmp, "limits": limits._asdict(),
+                  "note": "random-weight net: not a quality result",
+                  "card": card})
+            if not cmp["ok"]:
+                fail(f"{dname} {imf} frame disagrees with the f32 frame "
+                     f"through the plain kernels: {cmp}")
+        del eng, eng32, net, out, out32, want
+        torch.cuda.empty_cache()
+    return total
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, its shapes on the main path
     ("fused_ray_mlp", "fused_ray_mlp.cu",
@@ -1244,11 +1459,14 @@ def main() -> int:
                 "fused_anchor_mlp": tray.apply_anchor,
                 "fused_gather_mlp": tgather.apply_gather_ray,
                 "mix_rows": mix_rows.launch_mix_rows}
-    launches = frame_phases(netG, netC, counters, card)
+    launches, frontal = frame_phases(netG, netC, counters, card)
     for name, n in dense_phases(netG, netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     launches["fused_gather_mlp"] = gather_phase(counters)
     for name, n in serve_phase(counters, card).items():
+        launches[name] = launches.get(name, 0) + n
+    legacy_phase(netG, netC, frontal, card)
+    for name, n in backbones_phase(netG, counters, card).items():
         launches[name] = launches.get(name, 0) + n
 
     emit(kernels_line(rows, launches))

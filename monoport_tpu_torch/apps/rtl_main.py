@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import get_cfg_defaults
+from ..convert import load_legacy_pifu
 from ..engine import EngineCfg, RayCfg, ReconEngine, RotatedCfg
 from ..models import MonoPortNet
 from ..ops.constants import upload_async
@@ -116,22 +117,26 @@ def _arch_matches_default(cfg, net_key: str) -> bool:
 def load_networks(cfg, device=None, seed: int = 0):
     """netG and netC on ``device`` -> (netG, netC or None).
 
-    A ``ckpt_path`` that exists on disk is a legacy PIFu checkpoint, which
-    the port cannot read yet (ROADMAP queue 1 item 12): it raises. One set
-    but missing warns. Without a checkpoint the committed capsule netG
-    loads when the architecture is the default, and the committed netC
+    A ``ckpt_path`` that exists on disk is a reference checkpoint (a legacy
+    PIFu state dict or a Trainer dict), converted on the fly with the
+    backbone map that ``backbone.IMF`` names (``convert.load_legacy_pifu``).
+    One set but missing warns. Without a checkpoint the committed capsule
+    netG loads when the architecture is the default, and the committed netC
     only with it (it was trained against that netG's features); any other
     netG gets random init from a seeded ``torch.Generator``, and no netC.
     """
     device = resolve_device(device)
     for net_key in ("netG", "netC"):
         path = cfg[net_key].ckpt_path
-        if path and os.path.exists(path):
-            raise NotImplementedError(
-                f"{net_key}.ckpt_path {path!r}: legacy PIFu checkpoints are "
-                "not ported yet (ROADMAP queue 1 item 12)")
-        if path:
+        if path and not os.path.exists(path):
             log.warning("%s.ckpt_path %r not found on disk", net_key, path)
+
+    def from_ckpt(key: str):
+        path = cfg[key].ckpt_path
+        if not (path and os.path.exists(path)):
+            return None
+        state = load_legacy_pifu(path, cfg[key].backbone.IMF)
+        return build_net(cfg[key], state, device)
 
     def committed(key: str, fname: str):
         path = os.path.join(DATA, fname)
@@ -142,22 +147,29 @@ def load_networks(cfg, device=None, seed: int = 0):
                         "instead of %r", key, cfg[key].ckpt_path)
         return build_net(cfg[key], load_params(path)[0], device)
 
-    netG = committed("netG", "netg_capsule.npz")
+    netG = from_ckpt("netG")
+    netC = from_ckpt("netC")
     if netG is None:
-        return _init_random_net(cfg.netG, device, seed), None
-    return netG, committed("netC", "netc_capsule.npz")
+        netG = committed("netG", "netg_capsule.npz")
+        if netG is None:
+            netG = _init_random_net(cfg.netG, device, seed)
+        elif netC is None:
+            # the committed netC pairs only with the committed netG
+            netC = committed("netC", "netc_capsule.npz")
+    return netG, netC
 
 
 def _init_random_net(opt_net, device, seed: int = 0) -> MonoPortNet:
     """Random init when no checkpoint applies (the demo still runs): conv
     and linear weights uniform in +-1/sqrt(fan_in) from a seeded generator,
-    biases 0, norms 1; the head's input width from a probe of the
-    backbone (its last stage's channels + the z feature)."""
+    biases 0, norms weight 1 (BatchNorm with its default running stats);
+    the head's input width from a probe of the backbone (its last stage's
+    channels + the z feature)."""
     from ..models.backbones import BACKBONES
     from ..models.heads.surface_classifier import HEAD_SPECS
 
     with torch.no_grad():
-        feats = BACKBONES[opt_net.backbone.IMF](opt_net.backbone)(
+        feats = BACKBONES[opt_net.backbone.IMF](opt_net.backbone).eval()(
             torch.zeros(1, 128, 128, 3))[-1]
     widths = HEAD_SPECS[opt_net.head.IMF][0]
     gen = torch.Generator().manual_seed(seed)
@@ -171,7 +183,7 @@ def _init_random_net(opt_net, device, seed: int = 0) -> MonoPortNet:
             else:
                 p.zero_()
     for m in net.modules():
-        if isinstance(m, torch.nn.GroupNorm):
+        if isinstance(m, (torch.nn.GroupNorm, torch.nn.BatchNorm2d)):
             torch.nn.init.ones_(m.weight)
     return net.requires_grad_(False).eval().to(device)
 

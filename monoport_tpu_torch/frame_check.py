@@ -20,10 +20,14 @@ image, which is the frontal golden's (all written by
 ``python tests/test_torch_frame_golden.py --write``). ``data/serve_golden.npz``
 holds the JAX demo app's f32 stages on one raw capsule frame (``python
 tests/test_torch_app.py --write``); ``compare_display`` holds a served
-frame's packed display to it. ``compare_to_golden``
-holds a port frame to a golden with fractions, not a max error: the
-4-stack backbone sums in another order on each device, and a crossing
-near a knife-edge amplifies that.
+frame's packed display to it. ``data/backbone_golden.npz`` holds the JAX
+package's f32 outputs of the alternative netG backbones (HRNet and Yolov4
+with BatchNorm, on seeded weights; ``python tests/test_torch_backbones.py
+--write``) for the frontal golden's image, every ``BACKBONE_STRIDE``-th
+pixel in f16; ``compare_backbone`` holds a port backbone's output to it.
+``compare_to_golden`` holds a port frame to a golden with fractions, not a
+max error: the 4-stack backbone sums in another order on each device, and
+a crossing near a knife-edge amplifies that.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ GOLDEN_DENSE = os.path.join(os.path.dirname(__file__), "data",
                             "frame_golden_dense.npz")
 GOLDEN_SERVE = os.path.join(os.path.dirname(__file__), "data",
                             "serve_golden.npz")
+GOLDEN_BACKBONE = os.path.join(os.path.dirname(__file__), "data",
+                               "backbone_golden.npz")
+BACKBONE_STRIDE = 4                  # the backbone golden's pixel subsampling
 ROTATED_POSE = (20.0, 10.0)          # orbit yaw, pitch in degrees
 SDF_STRIDE = 4                       # the dense golden's volume subsampling
 QUALITY_RESOLUTIONS = (17, 33, 65, 129, 257)
@@ -150,6 +157,8 @@ def compare_to_golden(out: dict, golden: dict,
     errs = {"depth": (depth_err, limits.depth_atol)}
     for key, atol in (("render_norm", limits.norm_atol),
                       ("render_tex", limits.tex_atol)):
+        if key not in out:                   # a frame without netC
+            continue
         img = get(key)
         subject = _subject(img) | _subject(golden[key])
         errs[key] = (np.abs(img - golden[key]).max(axis=-1)[subject], atol)
@@ -201,3 +210,46 @@ def compare_sdf(out: dict, golden: dict, atol: float = 2e-3,
     res["ok"] = bool(res["sdf_within"] >= within_min
                      and np.isfinite(err).all())
     return res
+
+
+# the f32 backbone against its golden: the largest error of a level over
+# the level's largest magnitude, about twice what an H100 measures (up to
+# 4.27e-4; the golden's f16 rounding alone is up to 2^-11 of it)
+BACKBONE_LIMIT = 1e-3
+
+
+def backbone_levels(stages) -> dict:
+    """A backbone's [[B, h, w, C] level, ...] stages (torch or numpy) ->
+    {'s<stage>_l<level>': the first image's [h, w, C] f32 numpy array}."""
+    return {f"s{i}_l{j}": (y.detach().float().cpu().numpy()
+                           if isinstance(y, torch.Tensor)
+                           else np.asarray(y, np.float32))[0]
+            for i, ys in enumerate(stages) for j, y in enumerate(ys)}
+
+
+def subsample(level: np.ndarray) -> np.ndarray:
+    """A level as the backbone golden stores it."""
+    return level[::BACKBONE_STRIDE, ::BACKBONE_STRIDE].astype(np.float16)
+
+
+def compare_backbone(levels: dict, golden: dict, imf: str,
+                     limit: float = BACKBONE_LIMIT) -> dict:
+    """``backbone_levels`` of a port backbone against the golden's levels
+    of ``imf``: each level's shape and its largest error over its largest
+    magnitude, held to ``limit``."""
+    res, ok = {}, True
+    names = sorted(k.split("/", 1)[1] for k in golden
+                   if k.startswith(imf + "/"))
+    if names != sorted(levels):
+        return {"ok": False, "levels": sorted(levels), "golden": names}
+    for name in names:
+        want = golden[f"{imf}/{name}"].astype(np.float32)
+        got = levels[name][::BACKBONE_STRIDE, ::BACKBONE_STRIDE]
+        if got.shape != want.shape:
+            return {"ok": False, name: [got.shape, want.shape]}
+        scale = float(np.abs(want).max())
+        rel = float(np.abs(got - want).max()) / scale
+        res[name] = {"shape": list(levels[name].shape), "max_abs": scale,
+                     "max_err_rel": rel}
+        ok = ok and np.isfinite(got).all() and rel <= limit
+    return {"ok": bool(ok), "limit": limit, "levels": res}

@@ -1,12 +1,17 @@
 """Stacked-hourglass image encoder, the netG backbone (port of
 ``monoport_tpu/models/backbones/hourglass.py``).
 
-7x7/s2 stem, ConvBlocks with average-pool downsampling, ``num_stack``
-hourglasses at 256 channels with intermediate heads. Parity points:
-hourglass upsampling is bicubic align_corners=True through the shared
-interpolation matrices (ops/resize.py); GroupNorm(32, eps=1e-5); the
-ConvBlock is the 3-way split-channel residual. Module and parameter names
-follow the flax tree so ``weights.torch_state_from_flax`` is a rename.
+7x7/s2 stem, ConvBlocks with average-pool (or, ``hg_down`` ``conv64`` /
+``conv128``, strided-conv) downsampling, ``num_stack`` hourglasses at 256
+channels with intermediate heads. Parity points: hourglass upsampling is
+bicubic align_corners=True through the shared interpolation matrices
+(ops/resize.py); GroupNorm(32, eps=1e-5); the ConvBlock is the 3-way
+split-channel residual. Module and parameter names follow the flax tree so
+``weights.torch_state_from_flax`` is a rename.
+
+``make_norm`` is the norm of every backbone: GroupNorm, or ``BatchNorm``
+with flax's running-stat update (the converted reference HRNet / Yolov4
+weights use BatchNorm, HRNetFilters.py:10).
 
 The public ``forward`` takes NHWC images and returns NHWC feature maps;
 inside, the convolutions run NCHW.
@@ -18,14 +23,63 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.resize import resize_axis
+from ...ops.resize import interpolate_nchw
 
 
-def make_norm(norm: str, channels: int) -> nn.Module:
-    if norm != "group":
-        raise NotImplementedError(
-            f"norm {norm!r} is not ported yet (ROADMAP queue 1 item 12)")
-    return nn.GroupNorm(32, channels, eps=1e-5)
+def adaptive_groups(channels: int, max_groups: int = 32) -> int:
+    """Largest divisor of ``channels`` that is <= max_groups."""
+    for g in range(min(max_groups, channels), 0, -1):
+        if channels % g == 0:
+            return g
+    return 1
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(epsilon=1e-5, momentum=0.9)`` as a BatchNorm2d
+    (eps 1e-5, momentum 0.1; the same state_dict).
+
+    ``use_running_average`` (norm 'batch') reads the running stats in
+    either mode. Otherwise (norm 'batch_train') train mode normalizes by
+    the batch's statistics and updates the running ones, and eval mode
+    reads them (``eval_net``). The update is flax's: the batch variance is
+    E[x^2] - E[x]^2 (biased), where torch's own BatchNorm2d would put the
+    unbiased variance into ``running_var`` and drift from flax's
+    ``batch_stats``."""
+
+    def __init__(self, channels: int, use_running_average: bool):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.use_running_average = use_running_average
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_running_average or not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = (0, 2, 3)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean
+                                    + m * mean.detach())
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * var.detach())
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * inv[:, None, None]
+                + self.bias[:, None, None])
+
+
+def make_norm(norm: str, channels: int, groups: int = 32) -> nn.Module:
+    """'group': GroupNorm(``groups``) (each backbone has its own group
+    rule: 32 in the hourglass and the ResNet, ``adaptive_groups`` in HRNet,
+    min(32, channels) in Yolov4); 'batch': BatchNorm on running stats, for
+    converted reference weights; 'batch_train': BatchNorm on batch
+    statistics in train mode (``BatchNorm``)."""
+    if norm == "group":
+        return nn.GroupNorm(groups, channels, eps=1e-5)
+    if norm in ("batch", "batch_train"):
+        return BatchNorm(channels, use_running_average=norm == "batch")
+    raise ValueError(f"unknown norm: {norm}")
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
@@ -35,8 +89,7 @@ def conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0,
 
 def upsample2x_bicubic_nchw(x: torch.Tensor) -> torch.Tensor:
     h, w = x.shape[-2:]
-    x = resize_axis(x, 2, 2 * h, "bicubic", align_corners=True)
-    return resize_axis(x, 3, 2 * w, "bicubic", align_corners=True)
+    return interpolate_nchw(x, (2 * h, 2 * w), "bicubic")
 
 
 class ConvBlock(nn.Module):
@@ -99,14 +152,16 @@ class HGFilter(nn.Module):
                  hourglass_dim: int = 256, norm: str = "group",
                  hg_down: str = "ave_pool"):
         super().__init__()
-        if hg_down != "ave_pool":
-            raise NotImplementedError(
-                f"hg_down {hg_down!r} is not ported yet (ROADMAP queue 1 "
-                "item 12)")
+        if hg_down not in ("ave_pool", "conv64", "conv128"):
+            raise ValueError(f"unknown hg_down: {hg_down}")
         self.num_stack = num_stack
+        self.hg_down = hg_down
         self.conv1 = conv(3, 64, 7, stride=2, pad=3)
         self.bn1 = make_norm(norm, 64)
-        self.conv2 = ConvBlock(64, 128, norm)
+        c2 = 64 if hg_down == "conv64" else 128
+        self.conv2 = ConvBlock(64, c2, norm)
+        if hg_down != "ave_pool":
+            self.down_conv2 = conv(c2, 128, 3, stride=2, pad=1)
         self.conv3 = ConvBlock(128, 128, norm)
         self.conv4 = ConvBlock(128, 256, norm)
         for i in range(num_stack):
@@ -122,7 +177,10 @@ class HGFilter(nn.Module):
     def forward(self, x: torch.Tensor) -> list[tuple[torch.Tensor, ...]]:
         x = x.permute(0, 3, 1, 2)
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.avg_pool2d(self.conv2(x), 2, 2)
+        if self.hg_down == "ave_pool":
+            x = F.avg_pool2d(self.conv2(x), 2, 2)
+        else:
+            x = self.down_conv2(self.conv2(x))
         x = self.conv4(self.conv3(x))
         previous = x
         outputs = []

@@ -210,3 +210,12 @@ class MonoPortNet(nn.Module):
                        z_feat[..., None]], dim=-1)
         return self.surface_classifier(x.reshape(b, r * t, -1)).reshape(
             b, r, t, -1)
+
+
+def eval_net(net: MonoPortNet) -> MonoPortNet:
+    """Inference-mode counterpart of a net built with norm 'batch_train'
+    (``monoport_tpu.models.monoport_net.eval_net``): the same module in
+    eval mode, so its BatchNorms read their running stats. torch keeps the
+    variables in the module, so this switches ``net`` itself; ``.train()``
+    switches it back."""
+    return net.eval()

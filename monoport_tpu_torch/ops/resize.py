@@ -90,6 +90,14 @@ def interpolate_2d(x: torch.Tensor, size: tuple[int, int],
     return resize_axis(x, 2, size[1], mode, align_corners)
 
 
+def interpolate_nchw(x: torch.Tensor, size: tuple[int, int],
+                     mode: str = "bilinear",
+                     align_corners: bool = True) -> torch.Tensor:
+    """``interpolate_2d`` of an NCHW tensor (inside the backbones)."""
+    x = resize_axis(x, 2, size[0], mode, align_corners)
+    return resize_axis(x, 3, size[1], mode, align_corners)
+
+
 def upsample2x_bicubic(x: torch.Tensor) -> torch.Tensor:
     """2x bicubic upsample of NHWC, align_corners=True."""
     _, h, w, _ = x.shape

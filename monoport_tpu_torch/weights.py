@@ -2,9 +2,10 @@
 
 ``load_params`` is a numpy-only copy of ``monoport_tpu/utils/params_io``
 (f16 on disk, '/'-joined flax keys). ``torch_state_from_flax`` renames a
-flax parameter tree to the port's ``state_dict`` names and layouts:
-Conv HWIO -> OIHW, Dense [in, out] -> Linear [out, in], GroupNorm
-``scale/bias`` -> ``weight/bias``. The port's modules carry the flax
+flax parameter tree (and its BatchNorm ``batch_stats``) to the port's
+``state_dict`` names and layouts: Conv HWIO -> OIHW, Dense [in, out] ->
+Linear [out, in], norm ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
+``running_mean/running_var``. The port's modules carry the flax
 module names, so the rename is mechanical; ``load_module`` loads such a
 tree into any of them (MonoPortNet through ``build_net``, MatteNet,
 DetectNet; their checkpoints carry ``width`` / ``stride`` in the meta).
@@ -57,11 +58,21 @@ def _flatten(tree: Any, prefix: str = ""):
             yield name, np.asarray(value, np.float32)
 
 
-def torch_state_from_flax(params: Any) -> dict[str, torch.Tensor]:
-    """Flax param tree (numpy leaves; a top-level ``params`` collection is
-    unwrapped) -> torch ``state_dict`` (f32)."""
-    if set(params) == {"params"}:
-        params = params["params"]
+def _split(variables: Any) -> tuple[Any, Any]:
+    """(params, batch_stats) of flax variables or of a bare params tree."""
+    if "params" in variables and set(variables) <= {"params", "batch_stats"}:
+        return variables["params"], variables.get("batch_stats", {})
+    return variables, {}
+
+
+def torch_state_from_flax(variables: Any) -> dict[str, torch.Tensor]:
+    """Flax variables (numpy leaves) -> torch ``state_dict`` (f32).
+
+    ``variables`` is a params tree or ``{'params': ..., 'batch_stats':
+    ...}``; each BatchNorm's ``mean`` / ``var`` become ``running_mean`` /
+    ``running_var``, with ``num_batches_tracked`` 0 (flax keeps no count;
+    the update uses a fixed momentum and never reads it)."""
+    params, stats = _split(variables)
     state = {}
     for name, value in _flatten(params):
         base, leaf = name.rsplit(".", 1)
@@ -73,35 +84,55 @@ def torch_state_from_flax(params: Any) -> dict[str, torch.Tensor]:
             raise KeyError(f"unexpected flax leaf {name!r}")
         leaf = "bias" if leaf == "bias" else "weight"
         state[f"{base}.{leaf}"] = torch.tensor(value)
+    for name, value in _flatten(stats):
+        base, leaf = name.rsplit(".", 1)
+        if leaf not in ("mean", "var"):
+            raise KeyError(f"unexpected flax batch_stats leaf {name!r}")
+        state[f"{base}.running_{leaf}"] = torch.tensor(value)
+        state[f"{base}.num_batches_tracked"] = torch.tensor(0)
     return state
 
 
-def head_channels(params: Any) -> tuple[int, ...]:
-    """Head widths from the params (``infer_head_channels`` of the JAX
-    package): input width of layer 0, then every layer's output width."""
-    head = params["surface_classifier"]
-    n = len(head)
-    outs = [np.shape(head[f"filters_{i}"]["kernel"])[1] for i in range(n)]
-    return (np.shape(head["filters_0"]["kernel"])[0], *outs)
+def _as_state(weights: Any) -> dict[str, torch.Tensor]:
+    """A port ``state_dict`` (flat, tensor values: the converter's output)
+    as it is; flax variables through ``torch_state_from_flax``."""
+    if all(isinstance(v, torch.Tensor) for v in weights.values()):
+        return dict(weights)
+    return torch_state_from_flax(weights)
 
 
-def build_net(opt_net, params: Any,
+def head_channels(weights: Any) -> tuple[int, ...]:
+    """Head widths (``infer_head_channels`` of the JAX package) from
+    weights as ``build_net`` takes them: the input width of layer 0, then
+    every layer's output width."""
+    state = _as_state(weights)
+    n = sum(1 for k in state
+            if k.startswith("surface_classifier.") and k.endswith(".weight"))
+    w = [state[f"surface_classifier.filters_{i}.weight"] for i in range(n)]
+    return (w[0].shape[1], *(wi.shape[0] for wi in w))
+
+
+def build_net(opt_net, weights: Any,
               device: Optional[torch.device | str] = None) -> MonoPortNet:
-    """MonoPortNet with its head widths read from ``params`` (a flax
-    ``params`` tree: {'image_filter': ..., 'surface_classifier': ...}),
-    loaded strictly, in eval mode, on ``device`` (``resolve_device``:
-    the card unless the caller asks for another device)."""
-    net = MonoPortNet(opt_net, head_channels=head_channels(params))
-    return load_module(net, params, device)
+    """MonoPortNet with its head widths read from ``weights``, loaded
+    strictly, in eval mode, on ``device`` (``resolve_device``: the card
+    unless the caller asks for another device). ``weights`` is a flax
+    params tree ({'image_filter': ..., 'surface_classifier': ...}), flax
+    variables with ``batch_stats``, or a port ``state_dict``
+    (``convert.load_legacy_pifu``)."""
+    state = _as_state(weights)
+    net = MonoPortNet(opt_net, head_channels=head_channels(state))
+    return load_module(net, state, device)
 
 
-def load_module(module: torch.nn.Module, params: Any,
+def load_module(module: torch.nn.Module, weights: Any,
                 device: Optional[torch.device | str] = None
                 ) -> torch.nn.Module:
-    """``module`` with a flax ``params`` tree loaded strictly, in eval mode,
-    without gradients, on ``device`` (``resolve_device``)."""
+    """``module`` with ``weights`` (as ``build_net`` takes them) loaded
+    strictly, in eval mode, without gradients, on ``device``
+    (``resolve_device``)."""
     device = resolve_device(device)
-    module.load_state_dict(torch_state_from_flax(params), strict=True)
+    module.load_state_dict(_as_state(weights), strict=True)
     module.requires_grad_(False)
     return module.eval().to(device)
 

@@ -260,16 +260,26 @@ def test_infer_mesh_matches_jax(frames_dir, small_g, monkeypatch, tmp_path):
 
 
 def test_load_networks_rules(monkeypatch, tmp_path, caplog):
-    """A checkpoint on disk names the ROADMAP item that brings legacy
-    checkpoints; a missing one warns; the default architecture loads the
-    committed nets; another gets seeded random init and no netC."""
+    """A checkpoint on disk loads (a legacy PIFu state dict, converted);
+    a missing one warns; the default architecture loads the committed
+    nets; another gets seeded random init and no netC."""
     from monoport_tpu_torch.apps.rtl_main import load_networks, parse_args
+    from monoport_tpu_torch.convert import load_legacy_pifu
 
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch_reference_state import reference_state
+
+    _, cfg = parse_args(["--camera", "--"] + SMALL_G)
+    g1, c1 = load_networks(cfg, device="cpu")
     ckpt = tmp_path / "net_G"
-    ckpt.write_bytes(b"")
-    _, cfg = parse_args(["--camera", "--", "netG.ckpt_path", str(ckpt)])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_networks(cfg, device="cpu")
+    torch.save(reference_state(g1.state_dict(), "PIFuHGFilters"), ckpt)
+    _, cfg = parse_args(["--camera", "--", "netG.ckpt_path", str(ckpt)]
+                        + SMALL_G)
+    gk, ck = load_networks(cfg, device="cpu")
+    assert ck is None
+    assert gk.state_dict().keys() == g1.state_dict().keys()
+    for k, v in load_legacy_pifu(str(ckpt), "PIFuHGFilters").items():
+        assert torch.equal(gk.state_dict()[k], v), k
     _, cfg = parse_args(["--camera", "--", "netG.ckpt_path",
                          str(tmp_path / "missing")])
     with caplog.at_level("WARNING"):
@@ -277,7 +287,6 @@ def test_load_networks_rules(monkeypatch, tmp_path, caplog):
     assert "not found on disk" in caplog.text
     assert "committed capsule netG" in caplog.text and c0 is not None
     _, cfg = parse_args(["--camera", "--"] + SMALL_G)
-    g1, c1 = load_networks(cfg, device="cpu")
     g2, _ = load_networks(cfg, device="cpu")
     assert c1 is None
     for a, b in zip(g1.parameters(), g2.parameters()):

@@ -124,18 +124,26 @@ def test_engine_without_device_needs_cuda(setup, monkeypatch):
 
 
 def test_other_paths_raise_naming_their_roadmap_item():
-    """What the port still lacks raises at construction and names its
-    ROADMAP queue: the backbone's other norms and downsamplers, and the
-    soft-onehot z features."""
-    from monoport_tpu_torch.models.backbones.hourglass import HGFilter
+    """The backbone's other norms and downsamplers build (held to the JAX
+    package in tests/test_torch_backbones.py); what the port still lacks,
+    the soft-onehot z features, raises at construction and names its
+    ROADMAP queue."""
+    from monoport_tpu_torch.models.backbones.hourglass import (BatchNorm,
+                                                               HGFilter)
     from monoport_tpu_torch.models.normalizers.depth_normalizer import (
         DepthNormalizer)
 
-    for make in (lambda: HGFilter(num_stack=1, norm="batch"),
-                 lambda: HGFilter(num_stack=1, hg_down="conv64"),
-                 lambda: DepthNormalizer(soft_onehot=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            make()
+    net = HGFilter(num_stack=1, norm="batch")
+    assert isinstance(net.bn1, BatchNorm)
+    # (conv64's ConvBlock(64, 64) has 16-channel norms: no 32 groups)
+    for down, norm in (("conv64", "batch"), ("conv128", "group")):
+        net = HGFilter(num_stack=1, hg_down=down, norm=norm).eval()
+        with torch.no_grad():
+            out = net(torch.zeros(1, 32, 32, 3))
+        assert out[0][0].shape == (1, 8, 8, 256)
+        assert net.down_conv2.bias is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        DepthNormalizer(soft_onehot=True)
 
 
 def test_dense_hierarchy_and_clip_paths_run(setup):

@@ -1,5 +1,6 @@
 """PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
-perception, render and host pipeline included) and chip_smoke.py import
+perception, render, host pipeline, the alternative backbones and the
+checkpoint converter included) and chip_smoke.py import
 without pulling in jax or monoport_tpu (checked in a fresh interpreter,
 since this test process has both loaded)."""
 
@@ -23,7 +24,10 @@ print(len(mods), bad)
 assert len(mods) >= 20, mods
 assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
         "monoport_tpu_torch.pipeline.segmentation",
-        "monoport_tpu_torch.render.rasterizer"} <= set(mods), mods
+        "monoport_tpu_torch.render.rasterizer",
+        "monoport_tpu_torch.convert", "monoport_tpu_torch.convert.torch_loader",
+        "monoport_tpu_torch.models.backbones.hrnet",
+        "monoport_tpu_torch.models.backbones.yolov4"} <= set(mods), mods
 assert not bad, bad
 """
 
