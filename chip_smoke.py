@@ -90,7 +90,23 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     refine, no other kernel, no stream sync), the profile, the backbone's
     device ms beside the committed HGFilter's, and an f32 and the bf16
     frame held to the f32 frame through the plain kernels on the card.
-    The kernel phase's last rows run kernels 1-3 on a seeded 271-wide head.
+    The kernel phase's last rows run kernels 1-3 on a seeded 271-wide head;
+13. train (f32, TF32 off): one full-width train step of the committed
+    netG (Adam on the capsule app's cosine schedule) and netC (netG's
+    feature prior, the global-norm clip, Adam) on the batches of
+    ``data/train_golden.npz``: the loss, each gradient leaf's norm and
+    projection, and three steps' losses held to the JAX package's at
+    ``TRAIN_LIMITS``; ``apps.train_capsule_netG`` for ``TRAIN_STEPS``
+    steps from the committed netG at 512^2 (steps a second from CUDA
+    events, the median of the chunks; peak memory; the chunks' losses,
+    finite; the held-out IOU; none of our kernels launched), one profiled
+    step (device idle share, host syncs of the step and of the batch
+    draw: none), the saved npz with the committed netC through
+    ``ReconEngine`` (bf16 frontal frames: exactly 4 ray-MLP launches each,
+    the counts zeroed and read as phase 4's, no sync), 5 steps of
+    ``apps.train_capsule_netC --mixed 1``; ``apps.train`` (the Trainer) for
+    one epoch, its checkpoint resumed with every optimizer tensor, the
+    step, epoch and iteration equal to the saved ones, and one more epoch.
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -1375,6 +1391,284 @@ def backbones_phase(netG, counters: dict, card: str) -> dict:
     return total
 
 
+# phase 13: limits on the full-width train step against the JAX golden
+# (loss and step losses relative; a gradient leaf's norm relative to the
+# golden's, its projection's error relative to the golden's norm; "median"
+# over the leaves, "max" over them): about twice the larger reading of the
+# two nets on an H100 (netG's: 2.5e-7, 5.3e-4, 9.1e-5, 2.0e-3, 3.3e-4,
+# 2.1e-2; the worst leaves are early GroupNorm ones, where the golden's
+# f32 moments on the CPU are the weak side)
+TRAIN_LIMITS = {"loss": 5e-7, "step_losses": 1.1e-3, "norm_median": 2e-4,
+                "norm_max": 4e-3, "dot_median": 7e-4, "dot_max": 4.2e-2}
+TRAIN_STEPS, TRAIN_CHUNK = 20, 10
+
+
+def _train_batch(golden: dict, tag: str) -> dict:
+    import torch
+
+    return {"images": torch.from_numpy(
+                golden[f"{tag}_images"].astype("float32")).cuda(),
+            "points": torch.from_numpy(golden[f"{tag}_points"]).cuda(),
+            "labels": torch.from_numpy(golden[f"{tag}_labels"]).cuda(),
+            "calibs": torch.eye(4, device="cuda").expand(2, 4, 4)}
+
+
+def train_parity_phase(netG, card: str) -> None:
+    """Phase 13a: one full-width train step of the committed netG (Adam on
+    the capsule app's cosine schedule) and netC (netG's feature prior, the
+    global-norm clip, Adam) on the golden's batches, f32: the loss, each
+    gradient leaf's norm and projection, then three steps' losses, against
+    the JAX package's (``data/train_golden.npz``)."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import frame_check, weights
+    from monoport_tpu_torch.config import get_cfg_defaults
+    from monoport_tpu_torch.parallel import train_step as ts
+
+    golden = dict(np.load(frame_check.GOLDEN_TRAIN))
+    cfg = get_cfg_defaults()
+    cosine = ts.cosine_decay_schedule
+    runs = {"g": (cfg.netG, "netg_capsule.npz", ts.Optimizer(
+                ts.ScaleByAdam(), ts.ScaleByLearningRate(
+                    cosine(1e-3, 1500, alpha=0.05)))),
+            "c": (cfg.netC, "netc_capsule.npz", ts.Optimizer(
+                ts.ClipByGlobalNorm(1.0), ts.ScaleByAdam(),
+                ts.ScaleByLearningRate(cosine(3e-4, 3000, alpha=0.05))))}
+    for tag, (opt, fname, tx) in runs.items():
+        net = weights.build_net(opt, weights.load_params(
+            os.path.join(weights.DATA, fname))[0], "cuda")
+        batch = _train_batch(golden, tag)
+        if tag == "c":
+            with torch.no_grad():
+                batch["feat_prior"] = netG.filter(batch["images"])[-1][-1]
+        state = ts.create_train_state(net, tx)
+        _, loss = net(batch["images"], batch["points"], batch["calibs"],
+                      labels=batch["labels"],
+                      feat_prior=batch.get("feat_prior"), train=True)
+        loss.backward()
+        mine = frame_check.grad_summary(weights.flax_params_from_torch(
+            {n: p.grad for n, p in net.named_parameters()})["params"])
+        names = [str(n) for n in golden[f"{tag}_grad_names"]]
+        if sorted(mine) != names:
+            fail(f"net{tag.upper()}'s gradient leaves are not the golden's")
+        norms = golden[f"{tag}_grad_norms"]
+        norm_err = np.asarray([abs(mine[n][0] - w) / w
+                               for n, w in zip(names, norms)])
+        dot_err = np.asarray([abs(mine[n][1] - d) / w for n, d, w in zip(
+            names, golden[f"{tag}_grad_dots"], norms)])
+        step = ts.make_train_step(net)
+        losses = [float(step(state, batch)[1]) for _ in range(3)]
+        want = golden[f"{tag}_step_losses"]
+        loss = float(loss.detach())
+        res = {"loss": abs(loss - float(golden[f"{tag}_loss"]))
+               / float(golden[f"{tag}_loss"]),
+               "step_losses": float(np.max(np.abs(np.asarray(losses) - want)
+                                           / want)),
+               "norm_median": float(np.median(norm_err)),
+               "norm_max": float(norm_err.max()),
+               "dot_median": float(np.median(dot_err)),
+               "dot_max": float(dot_err.max())}
+        emit({"phase": "train_parity", "net": f"net{tag.upper()}",
+              "loss": loss, "golden_loss": float(golden[f"{tag}_loss"]),
+              "step_losses": losses, "golden_step_losses": want.tolist(),
+              "errors": res, "limits": TRAIN_LIMITS,
+              "worst_norm_leaf": names[int(norm_err.argmax())],
+              "worst_dot_leaf": names[int(dot_err.argmax())],
+              "leaves": len(names), "card": card})
+        over = {k: v for k, v in res.items() if not v <= TRAIN_LIMITS[k]}
+        if over:
+            fail(f"net{tag.upper()}'s train step is off the JAX golden: "
+                 f"{over}")
+        del net, state, step, loss
+        torch.cuda.empty_cache()
+
+
+def train_profile(net, batch_fn, card: str) -> None:
+    """One capsule train step of ``net`` after a warm-up: host syncs of the
+    step and of the batch draw (torch's sync debug mode); ms (CUDA events)
+    of a step with its batch draw (5, and their median), of a step on a
+    fixed batch and of a draw alone; the profiler's device time and idle
+    share of one step with its draw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from monoport_tpu_torch.parallel import train_step as ts
+
+    state = ts.create_train_state(net, ts.make_optimizer("adam", 1e-4))
+    step = ts.make_train_step(net)
+    batch = batch_fn()
+    step(state, batch)
+    torch.cuda.synchronize()
+    syncs_step = find_syncs(lambda: step(state, batch))
+    syncs_batch = find_syncs(batch_fn)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        times.append(cuda_ms(lambda: step(state, batch_fn()), 1))
+    step_ms = cuda_ms(lambda: step(state, batch), 3)
+    draw_ms = cuda_ms(batch_fn, 3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch_fn())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    med = statistics.median(times)
+    emit({"phase": "train_profile", "step_and_draw_ms": times,
+          "step_and_draw_ms_median": med, "step_ms": step_ms,
+          "draw_ms": draw_ms,
+          "wall_ms_profiled": wall, "device_ms": busy,
+          "device_idle_share": 1.0 - busy / med,
+          "device_idle_share_profiled": 1.0 - busy / wall,
+          "kernel_launches": sum(k[2] for k in kernels),
+          "host_syncs_step": len(syncs_step),
+          "host_syncs_batch": len(syncs_batch),
+          "top": [{"kernel": k[0][:90], "ms": k[1], "calls": k[2]}
+                  for k in kernels[:12]], "card": card})
+    if syncs_step or syncs_batch:
+        fail(f"a train step synchronised the stream: step {syncs_step}, "
+             f"batch {syncs_batch}")
+
+
+def capsule_app_phase(netC, counters: dict, card: str) -> dict:
+    """Phase 13b: ``apps.train_capsule_netG`` on the card from the
+    committed netG (20 steps, chunks of 10, batch 2 at 512^2, 4,096
+    points), none of our kernels launched while it trains; one profiled
+    step; the saved npz into ``ReconEngine`` with the committed netC:
+    bf16 frontal frames with 4 ray-MLP launches each and no other, no
+    sync; then 5 steps of ``apps.train_capsule_netC --mixed 1`` from the
+    committed nets. -> launches by kernel."""
+    import functools
+    import math
+    import tempfile
+
+    import torch
+
+    from monoport_tpu_torch import frame_check, weights
+    from monoport_tpu_torch.apps import train_capsule_netC, train_capsule_netG
+    from monoport_tpu_torch.config import get_cfg_defaults
+    from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.training.datasets.capsule import synth_train_batch
+
+    cfg = get_cfg_defaults()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "netg.npz")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = train_capsule_netG.main([
+            "--steps", str(TRAIN_STEPS), "--chunk", str(TRAIN_CHUNK),
+            "--batch", "2", "--size", "512", "--points", "4096",
+            "--init_from", os.path.join(weights.DATA, "netg_capsule.npz"),
+            "--out", out])
+        peak = torch.cuda.max_memory_allocated()
+        during = {name: fn.launches for name, fn in counters.items()}
+        rates = [n / s for n, s in zip(res["chunk_steps"],
+                                       res["chunk_seconds"])]
+        emit({"phase": "train_capsule_netG", "steps": TRAIN_STEPS,
+              "chunk": TRAIN_CHUNK, "steps_per_s_median":
+              statistics.median(rates), "steps_per_s": rates,
+              "chunk_losses": res["chunk_losses"], "heldout_iou": res["iou"],
+              "peak_memory_gib": peak / 2 ** 30, "our_kernel_launches":
+              during, "params": res["params"], "card": card})
+        if not all(math.isfinite(x) for x in res["chunk_losses"]):
+            fail(f"netG training gave non-finite losses {res}")
+        if any(during.values()):
+            fail(f"a train step launched our kernels: {during}")
+
+        trained = weights.build_net(cfg.netG, weights.load_params(out)[0],
+                                    "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        train_net = weights.build_net(cfg.netG, weights.load_params(out)[0],
+                                      "cuda")
+        train_profile(train_net, functools.partial(
+            synth_train_batch, gen, 2, 512, 4096, hard=True), card)
+        del train_net
+        torch.cuda.empty_cache()
+
+        golden = frame_check.load_golden()
+        image = torch.from_numpy(golden["image"]).cuda()
+        recon, cfg_e = frame_check.rtl_config(torch.bfloat16)
+        eng = ReconEngine(trained, netC, recon=recon, config=cfg_e)
+        expect = dict.fromkeys(counters, 0)
+        expect["fused_ray_mlp"] = 4
+        _, _, launches = timed_frames(eng, image, golden["calib"], counters,
+                                      expect, "frontal_trained_netG", card)
+        del eng, trained
+
+        resc = train_capsule_netC.main([
+            "--steps", "5", "--chunk", "5", "--batch", "2", "--size", "512",
+            "--points", "4096", "--mixed", "1", "--init_from",
+            os.path.join(weights.DATA, "netc_capsule.npz"),
+            "--out", os.path.join(tmp, "netc.npz")])
+        emit({"phase": "train_capsule_netC", "steps": 5, "mixed": 1,
+              "chunk_losses": resc["chunk_losses"], "heldout_l1": resc["l1"],
+              "heldout_psnr_db": resc["psnr"],
+              "steps_per_s": [n / s for n, s in zip(resc["chunk_steps"],
+                                                    resc["chunk_seconds"])],
+              "card": card})
+        if not all(math.isfinite(x) for x in resc["chunk_losses"]):
+            fail(f"netC training gave non-finite losses {resc}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def trainer_phase(card: str) -> None:
+    """Phase 13c: ``apps.train`` (the Trainer) on the synthetic blobs at
+    the published netG width (256^2 images, batch 2, the config's
+    RMSprop), one epoch; then ``--resume_from`` its checkpoint with
+    ``resume True``: the optimizer state, step, epoch and iteration equal
+    the saved ones tensor for tensor, and one more epoch runs."""
+    import math
+    import tempfile
+
+    import torch
+
+    from monoport_tpu_torch.apps import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--dataset", "synthetic", "--image_size", "256"]
+        opts = ["--", "batch_size", "2", "resume", "True", "freq_plot", "1",
+                "freq_save", "100000",
+                "checkpoints_path", os.path.join(tmp, "c"),
+                "results_path", os.path.join(tmp, "r")]
+        t0 = time.perf_counter()
+        loss0, tr = train.main(argv + ["--epochs", "1"] + opts)
+        epoch_s = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "c", "default", "epoch_0")
+        saved = torch.load(ckpt, map_location="cuda", weights_only=True)
+        _, tr = train.main(argv + ["--epochs", "1", "--resume_from", ckpt]
+                           + opts)
+        names = [n for n, _ in tr.net.named_parameters()]
+        differ = [f"{slot}/{n}" for slot, tensors in tr.state.opt_state.items()
+                  for n, t in zip(names, tensors)
+                  if not torch.equal(t, saved["opt_state"][slot][n])]
+        differ += [k for k, v in tr.net.state_dict().items()
+                   if not torch.equal(v, saved["params"][k])]
+        restored = (tr.state.step, tr.epoch, tr.iteration)
+        want = (saved["step"], saved["epoch"], saved["iteration"])
+        loss1, tr = train.main(argv + ["--epochs", "2", "--resume_from",
+                                       ckpt] + opts)
+        emit({"phase": "trainer", "epoch_losses": [loss0, loss1],
+              "epoch_0_s": epoch_s, "restored": list(restored),
+              "saved": list(want), "tensors_differing": len(differ),
+              "slots": sorted(saved["opt_state"]),
+              "iterations_after_resume": tr.iteration, "card": card})
+        if differ or restored != want:
+            fail(f"resume restored {restored} (saved {want}); tensors "
+                 f"differing: {differ[:5]}")
+        if not (math.isfinite(loss0) and math.isfinite(loss1)
+                and tr.iteration == 2 * saved["iteration"]):
+            fail(f"the Trainer's epochs: {loss0}, {loss1}, {tr.iteration}")
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, its shapes on the main path
     ("fused_ray_mlp", "fused_ray_mlp.cu",
@@ -1468,6 +1762,10 @@ def main() -> int:
     legacy_phase(netG, netC, frontal, card)
     for name, n in backbones_phase(netG, counters, card).items():
         launches[name] = launches.get(name, 0) + n
+    train_parity_phase(netG, card)
+    for name, n in capsule_app_phase(netC, counters, card).items():
+        launches[name] = launches.get(name, 0) + n
+    trainer_phase(card)
 
     emit(kernels_line(rows, launches))
     print(card, flush=True)

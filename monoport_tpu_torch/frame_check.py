@@ -25,6 +25,11 @@ package's f32 outputs of the alternative netG backbones (HRNet and Yolov4
 with BatchNorm, on seeded weights; ``python tests/test_torch_backbones.py
 --write``) for the frontal golden's image, every ``BACKBONE_STRIDE``-th
 pixel in f16; ``compare_backbone`` holds a port backbone's output to it.
+``data/train_golden.npz`` holds one full-width train step of the JAX
+package on the committed nets (``python tests/test_torch_training.py
+--write``): the batches, the loss, each gradient leaf's L2 norm and its dot
+product with ``projection_vector``, and three steps' losses;
+``grad_summary`` gives the same numbers for the port's gradients.
 ``compare_to_golden`` holds a port frame to a golden with fractions, not a
 max error: the 4-stack backbone sums in another order on each device, and
 a crossing near a knife-edge amplifies that.
@@ -53,6 +58,8 @@ GOLDEN_SERVE = os.path.join(os.path.dirname(__file__), "data",
                             "serve_golden.npz")
 GOLDEN_BACKBONE = os.path.join(os.path.dirname(__file__), "data",
                                "backbone_golden.npz")
+GOLDEN_TRAIN = os.path.join(os.path.dirname(__file__), "data",
+                            "train_golden.npz")
 BACKBONE_STRIDE = 4                  # the backbone golden's pixel subsampling
 ROTATED_POSE = (20.0, 10.0)          # orbit yaw, pitch in degrees
 SDF_STRIDE = 4                       # the dense golden's volume subsampling
@@ -253,3 +260,26 @@ def compare_backbone(levels: dict, golden: dict, imf: str,
                      "max_err_rel": rel}
         ok = ok and np.isfinite(got).all() and rel <= limit
     return {"ok": bool(ok), "limit": limit, "levels": res}
+
+
+def projection_vector(name: str, shape) -> np.ndarray:
+    """The seeded vector a gradient leaf (flax name and layout) is
+    projected on in the train golden."""
+    seed = sum(name.encode()) % (2 ** 31)
+    return np.random.RandomState(seed).standard_normal(shape)
+
+
+def grad_summary(grads: dict, prefix: str = "") -> dict:
+    """A gradient tree in the flax layout (nested dicts) -> each leaf's L2
+    norm and its dot product with ``projection_vector``, by its
+    '/'-joined name (f64)."""
+    out = {}
+    for key, leaf in grads.items():
+        name = f"{prefix}{key}"
+        if isinstance(leaf, dict):
+            out.update(grad_summary(leaf, name + "/"))
+            continue
+        leaf = np.asarray(leaf, np.float64)
+        out[name] = (float(np.linalg.norm(leaf)), float(
+            (leaf * projection_vector(name, leaf.shape)).sum()))
+    return out

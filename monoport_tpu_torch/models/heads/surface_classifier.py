@@ -6,6 +6,12 @@ and the PIFu skip-concat of the input feature into every layer after the
 first. Layer widths are explicit: ``weights.build_net`` reads them from
 the loaded params (a small test backbone gives a narrower head input
 than the published spec).
+
+``out_init_scale`` is the variance-scaling multiplier of the output
+layer's initial kernel (``parallel.train_step.init_params``; 1.0 is
+flax's lecun_normal). netC's head takes 1e-4: its ResnetFilter features
+are not normalised, and a default-initialised tanh starts saturated with
+zero gradients. Loaded weights are untouched by it.
 """
 
 from __future__ import annotations
@@ -21,11 +27,12 @@ LAST_OPS = {"sigmoid": torch.sigmoid, "tanh": torch.tanh, None: None}
 
 class SurfaceClassifier(nn.Module):
     def __init__(self, filter_channels: Sequence[int],
-                 last_op: str | None = None):
+                 last_op: str | None = None, out_init_scale: float = 1.0):
         super().__init__()
         chans = list(filter_channels)
         self.filter_channels = tuple(chans)
         self.last_op = last_op
+        self.out_init_scale = out_init_scale
         for i in range(len(chans) - 1):
             in_dim = chans[i] + (chans[0] if i > 0 else 0)
             self.add_module(f"filters_{i}", nn.Linear(in_dim, chans[i + 1]))
@@ -54,9 +61,10 @@ def PIFuNetGMLP(opt=None, filter_channels=None) -> SurfaceClassifier:
 
 
 def PIFuNetCMLP(opt=None, filter_channels=None) -> SurfaceClassifier:
-    """Color head: [513,1024,512,256,128,3] + tanh."""
+    """Color head: [513,1024,512,256,128,3] + tanh; its output layer
+    initialised at 1e-4 of the default variance."""
     return SurfaceClassifier(filter_channels or HEAD_SPECS["PIFuNetCMLP"][0],
-                             last_op="tanh")
+                             last_op="tanh", out_init_scale=1e-4)
 
 
 # (filter_channels, last_op) per head

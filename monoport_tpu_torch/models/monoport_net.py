@@ -1,10 +1,12 @@
 """MonoPortNet — the pixel-aligned implicit-function network (port of
-``monoport_tpu/models/monoport_net.py``, inference methods).
+``monoport_tpu/models/monoport_net.py``).
 
 Layouts follow the JAX package: images NHWC [B, H, W, C]; features
 [B, h, w, C]; points point-major [B, N, 3]; predictions [B, N, Res].
-Training (``get_loss``, per-stage supervision, the ``PIFuNetG``/``PIFuNetC``
-factories) comes with a later slice (ROADMAP queue 1 item 11).
+``query(train=True)`` supervises every stage of the backbone (4 for the
+4-stack HGFilter) through the plain head; ``train=False`` queries the last
+stage only, as the engine's frames do. ``get_loss`` averages the MSE / L1
+over the stages; ``forward`` with labels returns ``(pred, loss)``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..ops.projection import PROJECTIONS
 from ..ops.resize import interpolate_2d
 from ..ops.sampling import index, index_grid
 from .backbones import BACKBONES
-from .heads import HEADS
+from .heads import HEAD_SPECS, HEADS
 from .normalizers import PIFuNomalizer
 
 FeatStages = Sequence[Sequence[torch.Tensor]]
@@ -76,17 +78,24 @@ class MonoPortNet(nn.Module):
     def query(self, feats_stages: FeatStages, points: torch.Tensor,
               calibs: Optional[torch.Tensor] = None,
               transforms: Optional[torch.Tensor] = None,
-              head_fn=None) -> list[torch.Tensor]:
-        """Eval-mode query at [B, N, 3] world points -> [[B, N, Res]]."""
+              train: bool = False, head_fn=None) -> list[torch.Tensor]:
+        """Query at [B, N, 3] world points -> a [B, N, Res] prediction a
+        stage: every stage with ``train``, else the last one."""
+        if not train:
+            feats_stages = feats_stages[-1:]
         xyz = points if calibs is None else self.projection(
             points, calibs, transforms)
         xy, z = xyz[..., :2], xyz[..., 2:3]
         in_img = _in_image(xy[..., 0], xy[..., 1])
-        feats = feats_stages[-1]
-        z_feat = self.normalizer(z).to(feats[0].dtype)
-        x = torch.cat([index(f, xy) for f in feats] + [z_feat], dim=-1)
-        pred = head_fn(x) if head_fn is not None else self.surface_classifier(x)
-        return [in_img[..., None].to(pred.dtype) * pred]
+        z_feat = self.normalizer(z)
+        preds = []
+        for feats in feats_stages:
+            x = torch.cat([index(f, xy) for f in feats]
+                          + [z_feat.to(feats[0].dtype)], dim=-1)
+            pred = (head_fn(x) if head_fn is not None
+                    else self.surface_classifier(x))
+            preds.append(in_img[..., None].to(pred.dtype) * pred)
+        return preds
 
     # -- ray-structured query ----------------------------------------------
     def query_taps(self, feats_stages: FeatStages, xy_world: torch.Tensor,
@@ -96,6 +105,7 @@ class MonoPortNet(nn.Module):
                    head_taps_fn=None) -> torch.Tensor:
         """T z-taps per ray: [B,R,2] xy + [B,R,T] z -> [B, R, T, Res].
         Valid only for calibs whose image-plane rows have no z term."""
+        self._scalar_z("query_taps")
         feats = feats_stages[-1]
         base = torch.cat([xy_world, z_world[..., :1]], dim=-1)
         xyz = (self.projection(base, calibs, transforms)
@@ -131,6 +141,7 @@ class MonoPortNet(nn.Module):
         anchor features, the hat weights and the z features
         (``ops/cuda/fused_ray_mlp.apply_anchor``); without it the taps are
         mixed here and go through the plain head."""
+        self._scalar_z("query_taps_anchored")
         feats = feats_stages[-1]
         b, r, t = z_world.shape
         k = anchors
@@ -179,6 +190,7 @@ class MonoPortNet(nn.Module):
         """Outer-product ray lattice x_world [B,Nu] x y_world [B,Nv] with
         z_world [B,Nu,Nv,T] -> [B, Nu, Nv, T, Res]. Valid only when the
         calib's image rows are diagonal and z-free (engine._calib_grid_ok)."""
+        self._scalar_z("query_taps_grid")
         feats = feats_stages[-1]
         if calibs is not None:
             c = calibs
@@ -201,6 +213,10 @@ class MonoPortNet(nn.Module):
         pred = pred.reshape(b, nu, nv, t, -1)
         return in_img[..., None, None].to(pred.dtype) * pred
 
+    def _scalar_z(self, method: str) -> None:
+        if self.normalizer.soft_onehot:
+            raise ValueError(f"{method} requires the scalar z normalizer")
+
     def _head_taps(self, feat, z_feat, head_taps_fn):
         if head_taps_fn is not None:
             return head_taps_fn(feat, z_feat)
@@ -211,6 +227,56 @@ class MonoPortNet(nn.Module):
         return self.surface_classifier(x.reshape(b, r * t, -1)).reshape(
             b, r, t, -1)
 
+    # -- loss --------------------------------------------------------------
+    def get_loss(self, pred_stages: Sequence[torch.Tensor],
+                 labels: torch.Tensor) -> torch.Tensor:
+        """The loss of ``opt_net.loss`` (MSE or L1), averaged over stages."""
+        imf = self.opt_net.loss.IMF
+        if imf == "MSE":
+            fn = lambda p: torch.mean((p - labels) ** 2)
+        elif imf == "L1":
+            fn = lambda p: torch.mean(torch.abs(p - labels))
+        else:
+            raise NotImplementedError(imf)
+        return sum(fn(p) for p in pred_stages) / len(pred_stages)
+
+    def forward(self, images: torch.Tensor, points: torch.Tensor,
+                calibs: torch.Tensor,
+                transforms: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                feat_prior: Optional[torch.Tensor] = None,
+                train: bool = False):
+        """-> the last stage's prediction, and with ``labels`` also the
+        loss over the queried stages: ``(pred, loss)``."""
+        feats_stages = self.filter(images, feat_prior)
+        pred_stages = self.query(feats_stages, points, calibs, transforms,
+                                 train=train)
+        if labels is not None:
+            return pred_stages[-1], self.get_loss(pred_stages, labels)
+        return pred_stages[-1]
+
+
+def backbone_channels(opt_backbone) -> int:
+    """The feature width a stage of the backbone gives the head (its
+    levels' channels summed), from a dry run at 64^2 on the CPU."""
+    with torch.no_grad():
+        feats = BACKBONES[opt_backbone.IMF](opt_backbone)(
+            torch.zeros(1, 64, 64, 3))
+    return sum(f.shape[-1] for f in feats[-1])
+
+
+def head_channels_for(opt_net, prior_channels: int = 0) -> tuple[int, ...]:
+    """Head widths for a net trained from scratch: the published hidden
+    and output widths of ``opt_net.head`` after an input of the
+    backbone's features, a prior of ``prior_channels`` (netC: netG's
+    feature width) and the z feature. The JAX package's flax head infers
+    its input width; a torch ``Linear`` needs it up front."""
+    opt = CN(opt_net)
+    z = opt.normalizer.soft_dim if opt.normalizer.get("soft_onehot") else 1
+    spec = HEAD_SPECS[opt.head.IMF][0]
+    return (backbone_channels(opt.backbone) + prior_channels + z,
+            *spec[1:])
+
 
 def eval_net(net: MonoPortNet) -> MonoPortNet:
     """Inference-mode counterpart of a net built with norm 'batch_train'
@@ -219,3 +285,26 @@ def eval_net(net: MonoPortNet) -> MonoPortNet:
     variables in the module, so this switches ``net`` itself; ``.train()``
     switches it back."""
     return net.eval()
+
+
+def _pifu_opt(projection: str, backbone: str, head: str, loss: str) -> CN:
+    opt = CN()
+    opt.projection = projection
+    opt.backbone = CN({"IMF": backbone})
+    opt.normalizer = CN({"IMF": "PIFuNomalizer", "soft_onehot": False,
+                         "soft_dim": 64})
+    opt.head = CN({"IMF": head})
+    opt.loss = CN({"IMF": loss})
+    return opt
+
+
+def PIFuNetG() -> MonoPortNet:
+    """The geometry net: HGFilter, occupancy head, MSE."""
+    return MonoPortNet(_pifu_opt(
+        "orthogonal", "PIFuHGFilters", "PIFuNetGMLP", "MSE"))
+
+
+def PIFuNetC() -> MonoPortNet:
+    """The colour net: ResnetFilter, colour head, L1."""
+    return MonoPortNet(_pifu_opt(
+        "orthogonal", "PIFuResBlkFilters", "PIFuNetCMLP", "L1"))

@@ -1,13 +1,16 @@
-"""Depth (z) feature normalizer, scalar form (port of
+"""Depth (z) feature normalizer (port of
 ``monoport_tpu/models/normalizers/depth_normalizer.py``).
 
-Only the scalar ``z * scale`` form is ported: the frontal ray queries
-require it. The soft-onehot variant raises until a later slice needs it.
+The scalar form returns ``z * scale`` in z's own shape; the soft-onehot
+form takes z as [..., 1] and returns [..., soft_dim]: weight
+1 - |z_norm - i| on the two bins around z_norm (the ray queries require
+the scalar form).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 class DepthNormalizer:
@@ -15,15 +18,28 @@ class DepthNormalizer:
 
     def __init__(self, soft_onehot: bool = False, soft_dim: int = 64,
                  scale: float = 512 // 2 / 200.0):
-        if soft_onehot:
-            raise NotImplementedError(
-                "soft-onehot z features are not ported yet (ROADMAP queue 1)")
-        self.soft_onehot = False
+        self.soft_onehot = soft_onehot
         self.soft_dim = soft_dim
         self.scale = scale
 
     def __call__(self, z: torch.Tensor) -> torch.Tensor:
-        return z * self.scale
+        if not self.soft_onehot:
+            return z * self.scale
+        soft_dim = self.soft_dim
+        z_norm = (torch.clamp(z[..., 0], -1.0, 1.0) + 1.0) / 2.0 * (
+            soft_dim - 1)
+        z_floor = torch.floor(z_norm)
+        z_ceil = torch.ceil(z_norm)
+        floor_val = 1.0 - (z_norm - z_floor)
+        ceil_val = 1.0 - (z_ceil - z_norm)
+        onehot_floor = F.one_hot(z_floor.long(), soft_dim).to(z.dtype)
+        onehot_ceil = F.one_hot(z_ceil.long(), soft_dim).to(z.dtype)
+        # torch scatter overwrites: when floor == ceil the ceil write wins
+        # (the reference's DepthNormalizer.py:29-30), so the floor adds
+        # nothing there
+        same = (z_floor == z_ceil)[..., None]
+        return (torch.where(same, 0.0, onehot_floor * floor_val[..., None])
+                + onehot_ceil * ceil_val[..., None])
 
 
 def PIFuNomalizer(opt=None) -> DepthNormalizer:

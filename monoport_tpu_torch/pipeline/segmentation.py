@@ -9,8 +9,8 @@ a fixed prior box; without MatteNet weights the box alone). bboxes /
 probs: the matte's own extent and mean confidence. NHWC in and out, NCHW
 inside; MatteNet's decoder upsamples by exactly 2 with bilinear
 half-pixel sampling (``jax.image.resize``'s, and ``F.interpolate``'s with
-``align_corners=False`` there). The matting loss stays with ROADMAP queue
-1 item 11.
+``align_corners=False`` there). The matting loss is ROADMAP queue 1 item
+15 (the perception nets' training).
 """
 
 from __future__ import annotations

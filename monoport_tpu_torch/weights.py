@@ -5,10 +5,12 @@
 flax parameter tree (and its BatchNorm ``batch_stats``) to the port's
 ``state_dict`` names and layouts: Conv HWIO -> OIHW, Dense [in, out] ->
 Linear [out, in], norm ``scale/bias`` -> ``weight/bias``, ``mean/var`` ->
-``running_mean/running_var``. The port's modules carry the flax
-module names, so the rename is mechanical; ``load_module`` loads such a
-tree into any of them (MonoPortNet through ``build_net``, MatteNet,
-DetectNet; their checkpoints carry ``width`` / ``stride`` in the meta).
+``running_mean/running_var``; ``flax_params_from_torch`` is its inverse
+(``utils/params_io.save_params`` writes with it). The port's modules
+carry the flax module names, so the rename is mechanical; ``load_module``
+loads such a tree into any of them (MonoPortNet through ``build_net``,
+MatteNet, DetectNet; their checkpoints carry ``width`` / ``stride`` in the
+meta).
 
 The committed capsule-trained weights are not copied into the port's
 package: ``load_default_networks`` reads them from ``DATA``, the JAX
@@ -91,6 +93,37 @@ def torch_state_from_flax(variables: Any) -> dict[str, torch.Tensor]:
         state[f"{base}.running_{leaf}"] = torch.tensor(value)
         state[f"{base}.num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+def flax_params_from_torch(state: dict[str, torch.Tensor]) -> dict:
+    """A port ``state_dict`` -> flax variables ``{'params': ...}`` (plus
+    ``'batch_stats'`` where the state has BatchNorm running stats), f32
+    numpy leaves in the flax layouts: the inverse of
+    ``torch_state_from_flax`` (``num_batches_tracked`` is dropped, as flax
+    keeps no count)."""
+    variables: dict = {"params": {}}
+    for name, value in state.items():
+        base, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        value = value.detach().cpu().float().numpy()
+        if leaf in ("running_mean", "running_var"):
+            tree, leaf = variables.setdefault("batch_stats", {}), leaf[8:]
+        elif leaf == "weight":
+            tree = variables["params"]
+            leaf = {4: "kernel", 2: "kernel", 1: "scale"}[value.ndim]
+            if value.ndim == 4:                        # OIHW -> HWIO
+                value = value.transpose(2, 3, 1, 0)
+            elif value.ndim == 2:                      # [out, in] -> [in, out]
+                value = value.T
+        elif leaf == "bias":
+            tree = variables["params"]
+        else:
+            raise KeyError(f"unexpected state entry {name!r}")
+        for part in base.split("."):
+            tree = tree.setdefault(part, {})
+        tree[leaf] = np.array(value, np.float32)   # a copy, not a view
+    return variables
 
 
 def _as_state(weights: Any) -> dict[str, torch.Tensor]:

@@ -125,9 +125,10 @@ def test_engine_without_device_needs_cuda(setup, monkeypatch):
 
 def test_other_paths_raise_naming_their_roadmap_item():
     """The backbone's other norms and downsamplers build (held to the JAX
-    package in tests/test_torch_backbones.py); what the port still lacks,
-    the soft-onehot z features, raises at construction and names its
-    ROADMAP queue."""
+    package in tests/test_torch_backbones.py), and so do the soft-onehot z
+    features (tests/test_torch_training.py); what the port still lacks,
+    data parallel training over several cards, raises and names its
+    ROADMAP item."""
     from monoport_tpu_torch.models.backbones.hourglass import (BatchNorm,
                                                                HGFilter)
     from monoport_tpu_torch.models.normalizers.depth_normalizer import (
@@ -142,8 +143,11 @@ def test_other_paths_raise_naming_their_roadmap_item():
             out = net(torch.zeros(1, 32, 32, 3))
         assert out[0][0].shape == (1, 8, 8, 256)
         assert net.down_conv2.bias is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        DepthNormalizer(soft_onehot=True)
+    z = DepthNormalizer(soft_onehot=True, soft_dim=8)(torch.zeros(1, 3, 1))
+    assert z.shape == (1, 3, 8)
+    from monoport_tpu_torch.parallel.train_step import make_train_step
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 14"):
+        make_train_step(net, mesh="data")
 
 
 def test_dense_hierarchy_and_clip_paths_run(setup):

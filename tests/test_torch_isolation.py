@@ -1,6 +1,6 @@
 """PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
-perception, render, host pipeline, the alternative backbones and the
-checkpoint converter included) and chip_smoke.py import
+perception, render, host pipeline, the alternative backbones, the
+checkpoint converter and training included) and chip_smoke.py import
 without pulling in jax or monoport_tpu (checked in a fresh interpreter,
 since this test process has both loaded)."""
 
@@ -27,7 +27,15 @@ assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
         "monoport_tpu_torch.render.rasterizer",
         "monoport_tpu_torch.convert", "monoport_tpu_torch.convert.torch_loader",
         "monoport_tpu_torch.models.backbones.hrnet",
-        "monoport_tpu_torch.models.backbones.yolov4"} <= set(mods), mods
+        "monoport_tpu_torch.models.backbones.yolov4",
+        "monoport_tpu_torch.training.trainer",
+        "monoport_tpu_torch.parallel.train_step",
+        "monoport_tpu_torch.training.datasets.capsule",
+        "monoport_tpu_torch.training.datasets.superquadric",
+        "monoport_tpu_torch.utils.params_io",
+        "monoport_tpu_torch.apps.train",
+        "monoport_tpu_torch.apps.train_capsule_netG",
+        "monoport_tpu_torch.apps.train_capsule_netC"} <= set(mods), mods
 assert not bad, bad
 """
 
