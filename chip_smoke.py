@@ -90,7 +90,9 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     refine, no other kernel, no stream sync), the profile, the backbone's
     device ms beside the committed HGFilter's, and an f32 and the bf16
     frame held to the f32 frame through the plain kernels on the card.
-    The kernel phase's last rows run kernels 1-3 on a seeded 271-wide head;
+    The kernel phase's rows after those of the frames run kernels 1-3 on a
+    seeded 271-wide head, its last rows kernel 2 on the seeded
+    soft-onehot head (input 320) at phase 14's shapes;
 13. train (f32, TF32 off): one full-width train step of the committed
     netG (Adam on the capsule app's cosine schedule) and netC (netG's
     feature prior, the global-norm clip, Adam) on the batches of
@@ -106,7 +108,31 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     the counts zeroed and read as phase 4's, no sync), 5 steps of
     ``apps.train_capsule_netC --mixed 1``; ``apps.train`` (the Trainer) for
     one epoch, its checkpoint resumed with every optimizer tensor, the
-    step, epoch and iteration equal to the saved ones, and one more epoch.
+    step, epoch and iteration equal to the saved ones, and one more epoch;
+14. softonehot (run after phase 9): a numpy-seeded soft-onehot netG at
+    full width (the committed netG's architecture, 64 soft-onehot z bins,
+    head 320-1024-512-256-128-1; ``tests/torch_reference_state.py``) with
+    the committed netC at the real-time operating point. A soft-onehot net
+    takes no ray, grid or anchored query: the frontal frame runs the
+    hierarchy and a per-point refine (the per-point MLP once a level and
+    once for the refine, the ray MLP once for netC's colour), the rotated
+    frame a per-point march and per-point refines (the per-point MLP once
+    each); bf16 frames timed with the counts zeroed and read around them,
+    no stream sync; the bf16 and f32 frames of each view held to the same
+    frame through the plain kernels on the card; the f32 frontal frame
+    held to the JAX golden (``data/frame_golden_softonehot.npz``,
+    ``frame_check.F32_SOFT_LIMITS``, its volume and ``recon_counts``);
+15. train_perception (f32, TF32 off, last): one step of the committed
+    MatteNet (256^2, batch 8) and DetectNet (512^2, batch 2) with the
+    apps' Adam on the golden's batches: the loss, each gradient leaf's
+    norm and projection, three steps' losses against
+    ``data/perception_train_golden.npz`` at ``PERCEPTION_LIMITS``; no host
+    sync in a step or a draw of either; ``apps.train_matting`` and
+    ``apps.train_detection`` at their defaults cut to
+    ``PERCEPTION_STEPS`` steps: steps a second (CUDA events, the median of
+    the chunks), peak memory, the chunks' losses (finite), the held-out
+    alpha IOU / box IOU, precision and recall, none of our kernels
+    launched.
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -360,7 +386,25 @@ def wide_head_net():
     return types.SimpleNamespace(surface_classifier=head.cuda().eval())
 
 
-def kernel_phase(netG, netC, tray, tmlp, tgather):
+def soft_rows(rng, rays: int):
+    """Inputs of the soft-onehot head [1, rays, 320]: 256 normal feature
+    channels and the soft-onehot bins of a depth uniform in [-0.4, 0.4]
+    (where the seeded head's logit is not saturated)."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch.models.normalizers.depth_normalizer import (
+        DepthNormalizer)
+
+    z = torch.from_numpy(rng.uniform(-0.4, 0.4, (1, rays, 1)).astype(
+        np.float32))
+    bins = DepthNormalizer(soft_onehot=True,
+                           soft_dim=reference_helper().SOFT_DIM)(z)
+    feat = torch.from_numpy(rng.randn(1, rays, 256).astype(np.float32))
+    return torch.cat([feat, bins], dim=-1).cuda()
+
+
+def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
     """Every kernel vs its plain version at the shapes of the frames, the
     hierarchy levels and the gather A/B."""
     import numpy as np
@@ -408,14 +452,26 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
                 1, 1),
                ("fused_anchor_mlp", "refine257_window_c271", wide, 192 * 192,
                 6, HIERARCHY_ANCHORS)]
+    # the soft-onehot netG's head (input 320: 256 feature channels and 64
+    # z bins), per point, as its frames launch it (phase softonehot): the
+    # real-time hierarchy's largest level, the rotated march and the
+    # frontal per-point refine over the 192^2 window
+    shapes += [("fused_mlp", "level_16384_c320", soft, 16384, 1, 1),
+               ("fused_mlp", "march_c320", soft, 33 ** 3, 1, 1),
+               ("fused_mlp", "refine257_points_c320", soft, 192 * 192 * 6,
+                1, 1)]
     rows = []
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        # a head's packing for the kernels that take it (a soft-onehot head
+        # has no scalar z column: only the per-point kernel takes it)
         packs = {}
-        for n in {id(s[2]): s[2] for s in shapes}.values():
-            packs[id(n), "ray"] = tray.pack_ray_mlp_params(
-                n.surface_classifier, dtype=dtype, device="cuda")
-            packs[id(n), "point"] = tmlp.pack_mlp_params(
-                n.surface_classifier, dtype=dtype, device="cuda")
+        for kernel, _, n, *_ in shapes:
+            kind = "point" if kernel == "fused_mlp" else "ray"
+            if (id(n), kind) not in packs:
+                pack = (tmlp.pack_mlp_params if kind == "point"
+                        else tray.pack_ray_mlp_params)
+                packs[id(n), kind] = pack(n.surface_classifier, dtype=dtype,
+                                          device="cuda")
         for i, (kernel, name, net, rays, taps, k) in enumerate(shapes):
             head = net.surface_classifier
             rng = np.random.RandomState(100 + i)
@@ -430,7 +486,8 @@ def kernel_phase(netG, netC, tray, tmlp, tgather):
                 work = gather_mlp_work(head, rays, taps, dname, fmap.shape)
             elif kernel == "fused_mlp":
                 p = packs[id(net), "point"]
-                args = (cuda(rng.randn(1, rays, p.c_f)),)
+                args = ((soft_rows(rng, rays),) if net is soft
+                        else (cuda(rng.randn(1, rays, p.c_f)),))
                 fn, plain = tmlp.apply_mlp, tmlp.apply_mlp_plain
                 work = point_mlp_work(head, rays, dname)
             else:
@@ -1045,6 +1102,99 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     return total
 
 
+def softonehot_phase(netC, counters: dict, card: str) -> dict:
+    """The seeded soft-onehot netG (``tests/torch_reference_state``'s
+    ``soft_netg``) with the committed netC
+    at the real-time operating point: no ray, grid or anchored query for
+    netG. A frontal frame takes the hierarchy, then ``ray_refine`` per
+    point (the per-point MLP once a level and once for the refine, the ray
+    MLP once for netC's grid colour query); a rotated frame marches and
+    refines per point (the per-point MLP for the march and each refine
+    level, no other kernel). bf16 frames timed, the counts zeroed and read
+    around them, no stream sync; the bf16 and the f32 frame of each view
+    held to the same frame through the plain kernels on the card; the f32
+    frontal frame held to the JAX golden
+    (``data/frame_golden_softonehot.npz``, ``F32_SOFT_LIMITS``; its volume
+    and ``recon_counts`` too). -> launches by kernel."""
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.engine import ReconEngine
+
+    net = reference_helper().soft_netg("cuda")
+    golden = frame_check.load_golden(frame_check.GOLDEN_SOFTONEHOT)
+    image = torch.from_numpy(frame_check.load_golden()["image"]).cuda()
+    engines = {}
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        recon, cfg = frame_check.rtl_config(dtype)
+        engines[dname] = ReconEngine(net, netC, recon=recon, config=cfg)
+    eng = engines["bf16"]
+    if eng.head_g is not None or eng.anchor_g is not None \
+            or eng.head_c is None:
+        fail("the soft-onehot netG was given a ray-structured head")
+    rc = eng.recon.resolutions[-1]
+    n_levels = len(eng.recon.resolutions)
+    views = {
+        "frontal": (golden["calib"],
+                    {"fused_mlp": n_levels + 1, "fused_ray_mlp": 1},
+                    {**FRAME_SHAPES, "sdf": (rc, rc, rc),
+                     "recon_counts": (n_levels - 1,)}),
+        "rotated": (frame_check.rotated_calib(),
+                    {"fused_mlp": 1 + len(eng._refine_pairs())},
+                    FRAME_SHAPES)}
+    total = dict.fromkeys(counters, 0)
+    for view, (calib, launched, shapes) in views.items():
+        expect = {**dict.fromkeys(counters, 0), **launched}
+        out, _, launches = timed_frames(eng, image, calib, counters, expect,
+                                        f"softonehot_{view}", card, shapes,
+                                        depth_on_valid=True)
+        for k, n in launches.items():
+            total[k] += n
+        emit({"phase": "softonehot", "view": view,
+              "launches_per_frame_expected": expect,
+              "valid_fraction": float(out["valid"].float().mean()),
+              **({"band_report": eng.band_report(out)}
+                 if "recon_counts" in out else {}),
+              **({"compact_report": eng.compact_report(out)}
+                 if "compact_dropped" in out else {})})
+        for dname, limits in (("bf16", frame_check.BF16_LIMITS),
+                              ("f32", frame_check.F32_LIMITS)):
+            e = engines[dname]
+            got = out if dname == "bf16" else e.frame(image, image, calib)
+            with plain_kernels():
+                want = e.frame(image, image, calib)
+            torch.cuda.synchronize()
+            cmp = frame_check.compare_to_golden(got, as_golden(want), limits)
+            emit({"phase": "softonehot_vs_plain", "view": view,
+                  "dtype": dname, **cmp, "limits": limits._asdict(),
+                  "note": "random-weight net: not a quality result",
+                  "card": card})
+            if not cmp["ok"]:
+                fail(f"{dname} soft-onehot {view} frame disagrees with its "
+                     f"plain-kernel run: {cmp}")
+            if view == "frontal" and dname == "f32":
+                limits = frame_check.F32_SOFT_LIMITS
+                res = frame_check.compare_to_golden(got, golden, limits)
+                sdf = frame_check.compare_sdf(got, golden)
+                counts = got["recon_counts"].tolist()
+                drift = max(abs(a - b) / max(b, 1) for a, b in
+                            zip(counts, golden["recon_counts"].tolist()))
+                emit({"phase": "golden", "view": "softonehot_frontal",
+                      "dtype": "f32", **res,
+                      **{k: v for k, v in sdf.items() if k != "ok"},
+                      "sdf_ok": sdf["ok"], "recon_counts": counts,
+                      "golden_recon_counts":
+                      golden["recon_counts"].tolist(),
+                      "limits": limits._asdict(), "card": card})
+                if not (res["ok"] and sdf["ok"] and drift <= 2e-3):
+                    fail(f"f32 soft-onehot frontal frame disagrees with the "
+                         f"JAX golden: {res} {sdf} {counts}")
+            del want
+    del engines, eng, net
+    torch.cuda.empty_cache()
+    return total
+
+
 def gather_phase(counters: dict) -> int:
     """The gathering kernel's entry point. -> its launches there."""
     from monoport_tpu_torch import profile_gather
@@ -1413,6 +1563,48 @@ def _train_batch(golden: dict, tag: str) -> dict:
             "calibs": torch.eye(4, device="cuda").expand(2, 4, 4)}
 
 
+def parity_check(golden: dict, tag: str, name: str, grads: dict,
+                 loss: float, losses: list, limits: dict, phase: str,
+                 card: str) -> None:
+    """A train step against a golden's (keys ``<tag>_...``): the loss and
+    the step losses (relative), each gradient leaf's norm (relative) and
+    projection (over the golden's norm), their median and largest over the
+    leaves; emitted, and held to ``limits``. ``grads``: the port's
+    gradients by parameter name."""
+    import numpy as np
+
+    from monoport_tpu_torch import frame_check, weights
+
+    mine = frame_check.grad_summary(
+        weights.flax_params_from_torch(grads)["params"])
+    names = [str(n) for n in golden[f"{tag}_grad_names"]]
+    if sorted(mine) != names:
+        fail(f"{name}'s gradient leaves are not the golden's")
+    norms = golden[f"{tag}_grad_norms"]
+    norm_err = np.asarray([abs(mine[n][0] - w) / w
+                           for n, w in zip(names, norms)])
+    dot_err = np.asarray([abs(mine[n][1] - d) / w for n, d, w in zip(
+        names, golden[f"{tag}_grad_dots"], norms)])
+    want = golden[f"{tag}_step_losses"]
+    golden_loss = float(golden[f"{tag}_loss"])
+    res = {"loss": abs(loss - golden_loss) / golden_loss,
+           "step_losses": float(np.max(np.abs(np.asarray(losses) - want)
+                                       / want)),
+           "norm_median": float(np.median(norm_err)),
+           "norm_max": float(norm_err.max()),
+           "dot_median": float(np.median(dot_err)),
+           "dot_max": float(dot_err.max())}
+    emit({"phase": phase, "net": name, "loss": loss,
+          "golden_loss": golden_loss, "step_losses": losses,
+          "golden_step_losses": want.tolist(), "errors": res,
+          "limits": limits, "worst_norm_leaf": names[int(norm_err.argmax())],
+          "worst_dot_leaf": names[int(dot_err.argmax())],
+          "leaves": len(names), "card": card})
+    over = {k: v for k, v in res.items() if not v <= limits[k]}
+    if over:
+        fail(f"{name}'s train step is off the JAX golden: {over}")
+
+
 def train_parity_phase(netG, card: str) -> None:
     """Phase 13a: one full-width train step of the committed netG (Adam on
     the capsule app's cosine schedule) and netC (netG's feature prior, the
@@ -1426,6 +1618,9 @@ def train_parity_phase(netG, card: str) -> None:
     from monoport_tpu_torch.config import get_cfg_defaults
     from monoport_tpu_torch.parallel import train_step as ts
 
+    # the training apps' cuDNN policy (the step's own library call changes
+    # nothing process-wide)
+    ts.timed_convolutions("cuda")
     golden = dict(np.load(frame_check.GOLDEN_TRAIN))
     cfg = get_cfg_defaults()
     cosine = ts.cosine_decay_schedule
@@ -1447,71 +1642,41 @@ def train_parity_phase(netG, card: str) -> None:
                       labels=batch["labels"],
                       feat_prior=batch.get("feat_prior"), train=True)
         loss.backward()
-        mine = frame_check.grad_summary(weights.flax_params_from_torch(
-            {n: p.grad for n, p in net.named_parameters()})["params"])
-        names = [str(n) for n in golden[f"{tag}_grad_names"]]
-        if sorted(mine) != names:
-            fail(f"net{tag.upper()}'s gradient leaves are not the golden's")
-        norms = golden[f"{tag}_grad_norms"]
-        norm_err = np.asarray([abs(mine[n][0] - w) / w
-                               for n, w in zip(names, norms)])
-        dot_err = np.asarray([abs(mine[n][1] - d) / w for n, d, w in zip(
-            names, golden[f"{tag}_grad_dots"], norms)])
+        grads = {n: p.grad.clone() for n, p in net.named_parameters()}
         step = ts.make_train_step(net)
         losses = [float(step(state, batch)[1]) for _ in range(3)]
-        want = golden[f"{tag}_step_losses"]
-        loss = float(loss.detach())
-        res = {"loss": abs(loss - float(golden[f"{tag}_loss"]))
-               / float(golden[f"{tag}_loss"]),
-               "step_losses": float(np.max(np.abs(np.asarray(losses) - want)
-                                           / want)),
-               "norm_median": float(np.median(norm_err)),
-               "norm_max": float(norm_err.max()),
-               "dot_median": float(np.median(dot_err)),
-               "dot_max": float(dot_err.max())}
-        emit({"phase": "train_parity", "net": f"net{tag.upper()}",
-              "loss": loss, "golden_loss": float(golden[f"{tag}_loss"]),
-              "step_losses": losses, "golden_step_losses": want.tolist(),
-              "errors": res, "limits": TRAIN_LIMITS,
-              "worst_norm_leaf": names[int(norm_err.argmax())],
-              "worst_dot_leaf": names[int(dot_err.argmax())],
-              "leaves": len(names), "card": card})
-        over = {k: v for k, v in res.items() if not v <= TRAIN_LIMITS[k]}
-        if over:
-            fail(f"net{tag.upper()}'s train step is off the JAX golden: "
-                 f"{over}")
+        parity_check(golden, tag, f"net{tag.upper()}", grads,
+                     float(loss.detach()), losses, TRAIN_LIMITS,
+                     "train_parity", card)
         del net, state, step, loss
         torch.cuda.empty_cache()
 
 
-def train_profile(net, batch_fn, card: str) -> None:
-    """One capsule train step of ``net`` after a warm-up: host syncs of the
+def train_profile(step, batch_fn, card: str, phase: str = "train_profile",
+                  **fields) -> None:
+    """One train step (``step(batch)``) after a warm-up: host syncs of the
     step and of the batch draw (torch's sync debug mode); ms (CUDA events)
     of a step with its batch draw (5, and their median), of a step on a
     fixed batch and of a draw alone; the profiler's device time and idle
-    share of one step with its draw."""
+    share of one step with its draw. ``fields`` go into the emitted line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from monoport_tpu_torch.parallel import train_step as ts
-
-    state = ts.create_train_state(net, ts.make_optimizer("adam", 1e-4))
-    step = ts.make_train_step(net)
     batch = batch_fn()
-    step(state, batch)
+    step(batch)
     torch.cuda.synchronize()
-    syncs_step = find_syncs(lambda: step(state, batch))
+    syncs_step = find_syncs(lambda: step(batch))
     syncs_batch = find_syncs(batch_fn)
     torch.cuda.synchronize()
     times = []
     for _ in range(5):
-        times.append(cuda_ms(lambda: step(state, batch_fn()), 1))
-    step_ms = cuda_ms(lambda: step(state, batch), 3)
+        times.append(cuda_ms(lambda: step(batch_fn()), 1))
+    step_ms = cuda_ms(lambda: step(batch), 3)
     draw_ms = cuda_ms(batch_fn, 3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch_fn())
+        step(batch_fn())
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -1521,7 +1686,7 @@ def train_profile(net, batch_fn, card: str) -> None:
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
     med = statistics.median(times)
-    emit({"phase": "train_profile", "step_and_draw_ms": times,
+    emit({"phase": phase, **fields, "step_and_draw_ms": times,
           "step_and_draw_ms_median": med, "step_ms": step_ms,
           "draw_ms": draw_ms,
           "wall_ms_profiled": wall, "device_ms": busy,
@@ -1555,6 +1720,7 @@ def capsule_app_phase(netC, counters: dict, card: str) -> dict:
     from monoport_tpu_torch.apps import train_capsule_netC, train_capsule_netG
     from monoport_tpu_torch.config import get_cfg_defaults
     from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.parallel import train_step as ts
     from monoport_tpu_torch.training.datasets.capsule import synth_train_batch
 
     cfg = get_cfg_defaults()
@@ -1588,9 +1754,12 @@ def capsule_app_phase(netC, counters: dict, card: str) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(5)
         train_net = weights.build_net(cfg.netG, weights.load_params(out)[0],
                                       "cuda")
-        train_profile(train_net, functools.partial(
+        state = ts.create_train_state(train_net,
+                                      ts.make_optimizer("adam", 1e-4))
+        step = ts.make_train_step(train_net)
+        train_profile(lambda b: step(state, b), functools.partial(
             synth_train_batch, gen, 2, 512, 4096, hard=True), card)
-        del train_net
+        del train_net, state, step
         torch.cuda.empty_cache()
 
         golden = frame_check.load_golden()
@@ -1667,6 +1836,142 @@ def trainer_phase(card: str) -> None:
         if not (math.isfinite(loss0) and math.isfinite(loss1)
                 and tr.iteration == 2 * saved["iteration"]):
             fail(f"the Trainer's epochs: {loss0}, {loss1}, {tr.iteration}")
+
+
+# phase train_perception: limits on a step of the committed perception
+# nets against the JAX golden, as TRAIN_LIMITS: about twice the larger
+# reading of the two nets on an H100 (MatteNet / DetectNet: loss 1.1e-5 /
+# 3.0e-6, step losses 1.1e-5 / 2.5e-5, norms median 2.8e-6 / 1.0e-5, worst
+# 4.1e-5 / 3.7e-5, projections median 1.3e-5 / 3.4e-5, worst 1.3e-4 /
+# 2.4e-4; the worst leaves are GroupNorm ones)
+PERCEPTION_LIMITS = {"loss": 2.2e-5, "step_losses": 5e-5,
+                     "norm_median": 2.1e-5, "norm_max": 8.3e-5,
+                     "dot_median": 7e-5, "dot_max": 4.9e-4}
+PERCEPTION_STEPS, PERCEPTION_CHUNK = 300, 50
+
+
+def perception_parity(card: str) -> None:
+    """One step of the committed MatteNet (256^2, batch 8) and DetectNet
+    (512^2, batch 2) on the golden's batches with the apps' Adam (f32):
+    the loss, each gradient leaf's norm and projection, three steps'
+    losses, against ``data/perception_train_golden.npz`` (JAX on the
+    CPU)."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import frame_check, weights
+    from monoport_tpu_torch.parallel import train_step as ts
+    from monoport_tpu_torch.pipeline.detection import DetectNet
+    from monoport_tpu_torch.pipeline.segmentation import (MatteNet,
+                                                          matting_loss)
+    from monoport_tpu_torch.training.detection import detection_loss
+
+    g = dict(np.load(frame_check.GOLDEN_PERCEPTION_TRAIN))
+
+    def batch(tag, keys):
+        out = []
+        for k in keys:
+            v = g[f"{tag}_{k}"]
+            v = (v.astype(np.float32) / np.float32(255.0)
+                 if v.dtype == np.uint8 else
+                 v.astype(np.float32) if v.dtype == np.float16 else v)
+            out.append(torch.from_numpy(v).cuda())
+        return out
+
+    mparams, mmeta = weights.load_params(os.path.join(weights.DATA,
+                                                      "mattenet.npz"))
+    dparams, dmeta = weights.load_params(os.path.join(weights.DATA,
+                                                      "detectnet.npz"))
+    runs = {"m": ("MatteNet", MatteNet(width=mmeta["width"]), mparams,
+                  batch("m", ("images", "alpha")), matting_loss),
+            "d": ("DetectNet", DetectNet(width=dmeta["width"],
+                                         stride=dmeta["stride"]), dparams,
+                  batch("d", ("images", "boxes", "valid")), detection_loss)}
+    for tag, (name, net, params, b, loss_fn) in runs.items():
+        net = weights.load_module(net, params, "cuda")
+        state = ts.create_train_state(net, ts.make_optimizer("adam", 1e-3))
+        loss = loss_fn(net, *b)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in net.named_parameters()}
+        losses = [float(ts.loss_step(state, loss_fn, *b))
+                  for _ in range(3)]
+        parity_check(g, tag, name, grads, float(loss.detach()), losses,
+                     PERCEPTION_LIMITS, "perception_parity", card)
+        del net, state
+    torch.cuda.empty_cache()
+
+
+def perception_steps(card: str) -> None:
+    """``train_profile`` of each perception net at its app's default width
+    and shapes (MatteNet 256^2 x 8, DetectNet 512^2 x 2)."""
+    import torch
+
+    from monoport_tpu_torch.parallel import train_step as ts
+    from monoport_tpu_torch.pipeline.detection import DetectNet
+    from monoport_tpu_torch.pipeline.segmentation import (MatteNet,
+                                                          matting_loss)
+    from monoport_tpu_torch.training import detection, matting
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for name, net, loss_fn, draw in (
+            ("MatteNet", MatteNet(width=16), matting_loss,
+             lambda: matting.synth_batch(gen, 8, 256)),
+            ("DetectNet", DetectNet(width=16), detection.detection_loss,
+             lambda: detection.synth_det_batch(gen, 2, 512))):
+        state = ts.create_train_state(net.cuda(),
+                                      ts.make_optimizer("adam", 1e-3),
+                                      torch.Generator().manual_seed(0))
+        train_profile(lambda b: ts.loss_step(state, loss_fn, *b), draw,
+                      card, phase="perception_step", net=name)
+        del net, state
+
+
+def train_perception_phase(counters: dict, card: str) -> None:
+    """The perception nets' training: the parity of a step against the JAX
+    golden, no host sync in a step or a draw (and each step's device
+    profile), then both apps at their
+    defaults cut to ``PERCEPTION_STEPS`` steps (chunks of
+    ``PERCEPTION_CHUNK``): steps a second (CUDA events, the median of the
+    chunks), peak memory, the chunks' losses (finite), the held-out alpha
+    IOU / box IOU, precision and recall; none of our kernels launched."""
+    import math
+    import tempfile
+
+    import torch
+
+    from monoport_tpu_torch.apps import train_detection, train_matting
+
+    perception_parity(card)
+    perception_steps(card)
+    cut = ["--steps", str(PERCEPTION_STEPS), "--chunk",
+           str(PERCEPTION_CHUNK)]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, app in (("train_matting", train_matting),
+                          ("train_detection", train_detection)):
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            res = app.main(cut + ["--out", os.path.join(tmp, f"{name}.npz")])
+            peak = torch.cuda.max_memory_allocated()
+            during = {k: fn.launches for k, fn in counters.items()}
+            rates = [n / sec for n, sec in zip(res["chunk_steps"],
+                                                res["chunk_seconds"])]
+            emit({"phase": name, "steps": PERCEPTION_STEPS,
+                  "chunk": PERCEPTION_CHUNK,
+                  "steps_per_s_median": statistics.median(rates),
+                  "steps_per_s": rates, "chunk_losses": res["chunk_losses"],
+                  "heldout_iou": res["iou"],
+                  **({"heldout": {str(k): v for k, v in
+                                  res["heldout"].items()}}
+                     if "heldout" in res else {}),
+                  "peak_memory_gib": peak / 2 ** 30,
+                  "our_kernel_launches": during, "params": res["params"],
+                  "card": card})
+            if not all(math.isfinite(x) for x in res["chunk_losses"]):
+                fail(f"{name} gave non-finite losses {res['chunk_losses']}")
+            if any(during.values()):
+                fail(f"{name} launched our kernels: {during}")
+    torch.cuda.empty_cache()
 
 
 KERNELS = [
@@ -1748,13 +2053,16 @@ def main() -> int:
               for name, path in libs.items()}})
 
     netG, netC = load_default_networks()
-    rows = kernel_phase(netG, netC, tray, tmlp, tgather)
+    rows = kernel_phase(netG, netC, reference_helper().soft_netg("cuda"),
+                        tray, tmlp, tgather)
     counters = {"fused_ray_mlp": tray.apply_ray, "fused_mlp": tmlp.apply_mlp,
                 "fused_anchor_mlp": tray.apply_anchor,
                 "fused_gather_mlp": tgather.apply_gather_ray,
                 "mix_rows": mix_rows.launch_mix_rows}
     launches, frontal = frame_phases(netG, netC, counters, card)
     for name, n in dense_phases(netG, netC, counters, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in softonehot_phase(netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     launches["fused_gather_mlp"] = gather_phase(counters)
     for name, n in serve_phase(counters, card).items():
@@ -1766,6 +2074,7 @@ def main() -> int:
     for name, n in capsule_app_phase(netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     trainer_phase(card)
+    train_perception_phase(counters, card)
 
     emit(kernels_line(rows, launches))
     print(card, flush=True)

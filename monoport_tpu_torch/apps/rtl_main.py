@@ -49,6 +49,7 @@ from ..pipeline.streamer import open_stream
 from ..recon.calib import pifu_calib
 from ..recon.hierarchy import HierarchicalRecon
 from ..render.camera import orbit_extrinsic
+from ..utils import compile_cache
 from ..weights import DATA, build_net, load_params, resolve_device
 
 MODES = {
@@ -446,6 +447,7 @@ def _desktop_window(d, state: FrameState):  # pragma: no cover - UI path
 
 def main(argv=None):
     args, cfg = parse_args(argv)
+    compile_cache.enable()      # reuse the kernel libraries of earlier runs
     state = FrameState()
     server = None
     if args.use_server:

@@ -24,11 +24,12 @@ import torch
 from ..config import get_cfg_defaults
 from ..models.monoport_net import (MonoPortNet, backbone_channels,
                                    head_channels_for)
-from ..parallel.train_step import init_params
+from ..parallel.train_step import init_params, timed_convolutions
 from ..training import Trainer
 from ..training.datasets import (PPLDynamicDataset, PPLStaticDataset,
                                  SyntheticBlobDataset, make_batches)
 from ..training.trainer import to_device
+from ..utils import compile_cache
 from ..weights import DATA, build_net, load_params, resolve_device
 
 
@@ -138,6 +139,8 @@ def main(argv=None):
     """-> (the last epoch's mean logged loss, the Trainer)."""
     args, cfg = parse_args(argv)
     device = resolve_device(args.device)
+    compile_cache.enable()
+    timed_convolutions(device)
     net = build_train_net(cfg, args.net)
     dataset = build_dataset(args, cfg)
     trainer = Trainer(net, cfg, steps_per_epoch=args.steps_per_epoch or 1000,

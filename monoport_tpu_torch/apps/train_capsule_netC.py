@@ -30,11 +30,12 @@ from ..models import MonoPortNet
 from ..parallel.train_step import (ClipByGlobalNorm, Optimizer, ScaleByAdam,
                                    ScaleByLearningRate, cosine_decay_schedule,
                                    create_train_state, init_params,
-                                   make_train_step)
+                                   make_train_step, timed_convolutions)
 from ..training.datasets import capsule
 from ..training.metrics import masked_psnr
 from ..weights import (DATA, build_net, load_params, resolve_device,
                        torch_state_from_flax)
+from ..utils import compile_cache
 from ..utils.params_io import save_params
 from .train_capsule_netG import run_chunks
 
@@ -144,6 +145,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--out", default="netc_capsule.npz")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    compile_cache.enable()
+    timed_convolutions(device)
 
     cfg = get_cfg_defaults()
     netG = build_net(cfg.netG, load_params(args.netg)[0], device)

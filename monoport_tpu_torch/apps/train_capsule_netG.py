@@ -25,9 +25,10 @@ from ..models import MonoPortNet
 from ..parallel.train_step import (Optimizer, ScaleByAdam,
                                    ScaleByLearningRate, cosine_decay_schedule,
                                    create_train_state, init_params,
-                                   make_train_step)
+                                   make_train_step, timed_convolutions)
 from ..training.datasets.capsule import (render_front, sample_points,
                                          skeleton3d, synth_train_batch)
+from ..utils import compile_cache
 from ..utils.params_io import save_params
 from ..weights import load_params, resolve_device, torch_state_from_flax
 
@@ -92,6 +93,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--out", default="netg_capsule.npz")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
+    compile_cache.enable()
+    timed_convolutions(device)
 
     net = MonoPortNet(get_cfg_defaults().netG)
     init_params(net, torch.Generator().manual_seed(args.seed))

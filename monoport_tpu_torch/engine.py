@@ -35,6 +35,12 @@ does, so no per-frame device sync appears:
   plan gives that level, or exact per-point where the plan gives none;
   the per-point colour query rides the last level's compaction.
 
+A net with soft-onehot z features (``normalizer.soft_onehot``) takes no
+ray, grid or anchored query, decided per net from its config as in the JAX
+engine: a soft-onehot netG's frontal frame takes the hierarchy, its
+rotated frame marches and refines per point, and a soft-onehot netC's
+colour query runs per point.
+
 With ``rotated.march=False`` a rotated calib takes the hierarchy instead
 of the march, and ``mode='ray'`` then refines with the anchored query of
 the single coarse-to-fine level. A mesh comes from a dense frame's ``sdf``
@@ -76,6 +82,12 @@ from .weights import resolve_device
 # Adaptive rotated-compaction budget rungs: frame(compact_hint=...) snaps
 # the hint up to one of these, so a bounded set of shapes ever runs.
 COMPACT_LADDER = (0.25, 0.375, 0.5, 0.625)
+
+
+def _scalar_z(net: MonoPortNet) -> bool:
+    """True iff ``net``'s z feature is the scalar normalizer (not the
+    soft-onehot one, whose nets only take per-point queries)."""
+    return not CN(net.opt_net).normalizer.get("soft_onehot", False)
 
 
 def _snap_budget(hint: float, ceiling: float) -> float:
@@ -176,6 +188,53 @@ class EngineCfg:
     rotated: RotatedCfg = RotatedCfg()
     texture: TextureCfg = TextureCfg()
 
+    @classmethod
+    def flat(cls, **knobs) -> "EngineCfg":
+        """A grouped config from the JAX package's flat knob names
+        (``monoport_tpu.engine.EngineCfg.flat``). An unknown name raises
+        ``KeyError``. The port has no interpret mode and no plain route in
+        place of its kernels: ``use_pallas`` is accepted only as True and
+        ``pallas_interpret`` only as False."""
+        top: dict = {}
+        groups: dict = {"ray": {}, "rotated": {}, "texture": {}}
+        for name, value in knobs.items():
+            where = _FLAT[name]
+            if name in _KERNEL_KNOBS:
+                if value != _KERNEL_KNOBS[name]:
+                    raise ValueError(
+                        f"{name}={value!r}: the port's kernels always run "
+                        f"on the card (their plain versions on CPU tensors);"
+                        f" only {_KERNEL_KNOBS[name]} is accepted")
+            elif where is None:
+                top[name] = value
+            else:
+                groups[where[0]][where[1]] = value
+        return cls(ray=RayCfg(**groups["ray"]),
+                   rotated=RotatedCfg(**groups["rotated"]),
+                   texture=TextureCfg(**groups["texture"]), **top)
+
+
+# the JAX package's flat knob names -> (group, field); None = top level
+_FLAT = {
+    "render_size": None, "direction": None, "compute_dtype": None,
+    "use_pallas": None, "pallas_interpret": None,
+    "mode": ("ray", "mode"), "fine_res": ("ray", "fine_res"),
+    "ray_taps": ("ray", "taps"), "ray_window": ("ray", "window"),
+    "march_levels": ("ray", "march_levels"),
+    "use_ray_query": ("ray", "use_ray_query"),
+    "march_rotated": ("rotated", "march"),
+    "compact_rotated": ("rotated", "compact"),
+    "rot_anchors": ("rotated", "anchors"),
+    "rot_anchor_texels": ("rotated", "anchor_texels"),
+    "tex_bf16": ("texture", "bf16"),
+    "tex_reuse_compact": ("texture", "reuse_compact"),
+    "tex_stride": ("texture", "stride"),
+    "tex_pallas_head": ("texture", "pallas_head"),
+}
+# the knobs of the JAX package's kernel routes, and the one value each
+# takes here
+_KERNEL_KNOBS = {"use_pallas": True, "pallas_interpret": False}
+
 
 class ReconEngine:
     """Frame program: (images, calib) -> rendered maps, with the weights
@@ -216,17 +275,23 @@ class ReconEngine:
         self.netG = self._cast(netG)
         self.netC = self._cast(netC) if netC is not None else None
         # head operands, packed once: the ray and anchored kernels share
-        # one packing, the per-point kernel has its own
+        # one packing, the per-point kernel has its own. A net with
+        # soft-onehot z gets no ray-structured head (its z is no scalar
+        # column), and ``frame()`` sends its queries per point.
         dt, dev = self.compute_dtype, self.device
-        ray_g = pack_ray_mlp_params(self.netG.surface_classifier, dt, dev)
         point_g = pack_mlp_params(self.netG.surface_classifier, dt, dev)
-        self.head_g = lambda feat, z: apply_ray(ray_g, feat, z)
-        self.anchor_g = lambda feat_k, w, z: apply_anchor(ray_g, feat_k, w, z)
         self.point_g = lambda x: apply_mlp(point_g, x)
-        self.head_c = self.point_c = None
+        self.head_g = self.anchor_g = self.head_c = self.point_c = None
+        if _scalar_z(self.netG):
+            ray_g = pack_ray_mlp_params(self.netG.surface_classifier, dt, dev)
+            self.head_g = lambda feat, z: apply_ray(ray_g, feat, z)
+            self.anchor_g = lambda feat_k, w, z: apply_anchor(ray_g, feat_k,
+                                                              w, z)
         if self.netC is not None:
-            ray_c = pack_ray_mlp_params(self.netC.surface_classifier, dt, dev)
-            self.head_c = lambda feat, z: apply_ray(ray_c, feat, z)
+            if self._ray_ok(self.netC):
+                ray_c = pack_ray_mlp_params(self.netC.surface_classifier, dt,
+                                            dev)
+                self.head_c = lambda feat, z: apply_ray(ray_c, feat, z)
             self.point_c = self._point_color_head()
 
     def _cast(self, net: MonoPortNet) -> MonoPortNet:
@@ -251,6 +316,14 @@ class ReconEngine:
         if self.compute_dtype == torch.float32:
             return None
         return copy.deepcopy(head).float()
+
+    def _ray_ok(self, net: MonoPortNet) -> bool:
+        """True iff ``net`` may take the ray- and grid-structured queries
+        (the JAX engine's ``_ray_head is not None``): they are allowed, the
+        net is orthographic and its z feature is a scalar. Decided per net
+        from its config, before any frame."""
+        return (self.config.ray.use_ray_query and _scalar_z(net)
+                and CN(net.opt_net).projection == "orthogonal")
 
     def _calib_taps_ok(self, calibs) -> bool:
         """True iff every calib has z-free image-plane rows (host check on
@@ -553,9 +626,12 @@ class ReconEngine:
         image_g = image_g.to(device=self.device, dtype=dt)
         feats_g = self._feats_f32(self.netG.filter(image_g))
 
-        if use_taps:
+        # a soft-onehot netG has no ray-structured query: its frontal frame
+        # takes the hierarchy and its rotated frame refines per point
+        ray_g = use_taps and self.head_g is not None
+        if ray_g:
             taps_fns = self._query_taps_fn(feats_g, calib_t)
-        elif any(rot_k):
+        elif self.anchor_g is not None and any(rot_k):
             # anchored ray query per refine level, K from the host-side
             # plan; the dense march stays per-point (full-volume tap spans)
             taps_fns = [self._query_anchored_fn(feats_g, calib_t, k)
@@ -564,12 +640,13 @@ class ReconEngine:
             taps_fns = None
         query_occ = self._query_occ_fn(feats_g, calib_t)
         query_grid = (self._query_grid_fn(feats_g, calib_t)
-                      if use_grid else None)
+                      if use_grid and ray_g else None)
         telemetry: list = []
         tex_state: list = []
         vol, counts = None, []
         resolution = self.fine_res
-        if self.march_levels and (use_taps or cfg.rotated.march):
+        if self.march_levels and (ray_g or (not use_taps
+                                            and cfg.rotated.march)):
             # volume-free: no hierarchy, no depth peel, no sdf
             want_state = (cfg.texture.reuse_compact and not use_taps
                           and self.netC is not None and image_c is not None)
@@ -614,7 +691,7 @@ class ReconEngine:
             feats_c = self.netC.filter(image_c, feat_prior)
             if not (cfg.texture.bf16 and not use_taps):
                 feats_c = self._feats_f32(feats_c)
-            if use_grid:
+            if use_grid and self.head_c is not None:
                 tex = self._texture_canvas(
                     maps, resolution,
                     color_grid=self._grid_color_fn(feats_c, calib_t))

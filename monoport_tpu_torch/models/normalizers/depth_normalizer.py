@@ -10,7 +10,6 @@ the scalar form).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 
 class DepthNormalizer:
@@ -32,8 +31,13 @@ class DepthNormalizer:
         z_ceil = torch.ceil(z_norm)
         floor_val = 1.0 - (z_norm - z_floor)
         ceil_val = 1.0 - (z_ceil - z_norm)
-        onehot_floor = F.one_hot(z_floor.long(), soft_dim).to(z.dtype)
-        onehot_ceil = F.one_hot(z_ceil.long(), soft_dim).to(z.dtype)
+        # one-hot by comparison with the bins, not ``F.one_hot``: a NaN z
+        # (depth_peel's 0/0 on a colour query) then gives a NaN feature, as
+        # in JAX, where ``F.one_hot`` raises on the CPU and asserts on the
+        # card; and the card needs no range check
+        bins = torch.arange(soft_dim, dtype=z_norm.dtype, device=z.device)
+        onehot_floor = (z_floor[..., None] == bins).to(z.dtype)
+        onehot_ceil = (z_ceil[..., None] == bins).to(z.dtype)
         # torch scatter overwrites: when floor == ceil the ceil write wins
         # (the reference's DepthNormalizer.py:29-30), so the floor adds
         # nothing there

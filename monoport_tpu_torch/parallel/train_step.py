@@ -300,25 +300,53 @@ class TrainState:
         return self
 
 
+def timed_convolutions(device) -> None:
+    """On the card, set ``torch.backends.cudnn.benchmark`` for the process:
+    cuDNN then times its convolution algorithms once a shape instead of
+    taking its heuristic's pick, which in f32 without TF32 (cuDNN 9.2) is
+    an FFT engine for the hourglass's 3x3 256 -> 128 convolutions at 128^2
+    that launches ~33,000 small GEMMs: 254 ms a call against 0.49 ms
+    measured on an H100. Process-wide, so only an entry point calls it
+    (the training apps' ``main``), before its first convolution of a
+    shape: PyTorch keeps a shape's pick."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.benchmark = True
+
+
 def create_train_state(net: nn.Module, tx: Optimizer,
                        generator: Optional[torch.Generator] = None
                        ) -> TrainState:
     """A state at step 0 over ``net``'s parameters, drawn anew from
     ``generator`` (``init_params``) when one is given, else as loaded.
-
-    On the card it also sets ``torch.backends.cudnn.benchmark``: cuDNN then
-    times its convolution algorithms once a shape instead of taking its
-    heuristic's pick, which in f32 without TF32 (cuDNN 9.2) is an FFT
-    engine for the hourglass's 3x3 256 -> 128 convolutions at 128^2 that
-    launches ~33,000 small GEMMs: 254 ms a call against 0.49 ms measured
-    on an H100."""
+    Nothing process-wide changes: the training apps pick cuDNN's
+    algorithms themselves (``timed_convolutions``)."""
     if generator is not None:
         init_params(net, generator)
-    if next(net.parameters()).is_cuda:
-        torch.backends.cudnn.benchmark = True
     net.requires_grad_(True).train()
     return TrainState(step=0, net=net, opt_state=tx.init(
         list(net.parameters())), tx=tx)
+
+
+def loss_step(state: TrainState, loss_fn: Callable, *batch) -> torch.Tensor:
+    """One optimizer step of ``state`` on ``loss_fn(state.net, *batch)``
+    (a parameter without a gradient steps on zeros). -> the loss before
+    the step, a device tensor (no host sync)."""
+    params = state.params
+    for p in params:
+        p.grad = None
+    loss = loss_fn(state.net, *batch)
+    loss.backward()
+    state.apply_gradients([p.grad if p.grad is not None
+                           else torch.zeros_like(p) for p in params])
+    for p in params:
+        p.grad = None
+    return loss.detach()
+
+
+def _monoport_loss(net: nn.Module, batch: dict) -> torch.Tensor:
+    return net(batch["images"], batch["points"], batch["calibs"],
+               labels=batch["labels"], feat_prior=batch.get("feat_prior"),
+               train=True)[1]
 
 
 def make_train_step(net: nn.Module, mesh=None) -> Callable:
@@ -334,19 +362,7 @@ def make_train_step(net: nn.Module, mesh=None) -> Callable:
         if state.net is not net:
             raise ValueError("the state holds another module")
         net.train()
-        params = state.params
-        for p in params:
-            p.grad = None
-        _, loss = net(batch["images"], batch["points"], batch["calibs"],
-                      labels=batch["labels"],
-                      feat_prior=batch.get("feat_prior"), train=True)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        state.apply_gradients(grads)
-        for p in params:
-            p.grad = None
-        return state, loss.detach()
+        return state, loss_step(state, _monoport_loss, batch)
 
     return step_fn
 

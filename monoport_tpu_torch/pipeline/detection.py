@@ -7,8 +7,8 @@ input pads one row and column below / right, none above / left) to a
 G = S / stride grid with three 1x1 heads (centre heatmap, log box size,
 sub-cell offset), decoded by a 3x3 max-pool peak test and the top k by a
 stable sort (the lowest index first among equal scores, as ``lax.top_k``).
-Static shapes, no host sync. The training loss is ROADMAP queue 1 item 15
-(the perception nets' training).
+Static shapes, no host sync. The training loss is
+``training/detection.detection_loss``.
 """
 
 from __future__ import annotations

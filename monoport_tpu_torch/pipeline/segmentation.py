@@ -9,8 +9,8 @@ a fixed prior box; without MatteNet weights the box alone). bboxes /
 probs: the matte's own extent and mean confidence. NHWC in and out, NCHW
 inside; MatteNet's decoder upsamples by exactly 2 with bilinear
 half-pixel sampling (``jax.image.resize``'s, and ``F.interpolate``'s with
-``align_corners=False`` there). The matting loss is ROADMAP queue 1 item
-15 (the perception nets' training).
+``align_corners=False`` there). ``matting_loss`` (and the BCE it is built
+on, ``optax_sigmoid_bce``) trains MatteNet (``training/matting.py``).
 """
 
 from __future__ import annotations
@@ -160,3 +160,27 @@ class Segmentation:
             segm = torch.cat([images * 2.0 - 1.0, alpha[..., None]], dim=-1)
             bbox, probs = alpha_to_bbox(alpha)
             return segm, bbox, probs
+
+
+def optax_sigmoid_bce(logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid binary cross-entropy, as
+    ``optax.sigmoid_binary_cross_entropy``: -labels log sigmoid(x) -
+    (1 - labels) log sigmoid(-x)."""
+    return (-labels * F.logsigmoid(logits)
+            - (1.0 - labels) * F.logsigmoid(-logits))
+
+
+def matting_loss(net: MatteNet, images: torch.Tensor,
+                 alpha_gt: torch.Tensor) -> torch.Tensor:
+    """MatteNet's training loss on images [B, H, W, 3] in [0, 1] and mattes
+    [B, H, W]: the mean BCE of the logits plus half the mean absolute
+    difference of the edge magnitudes |diff| along W and along H."""
+    logits = net(images * 2.0 - 1.0)[..., 0]
+    bce = optax_sigmoid_bce(logits, alpha_gt).mean()
+    alpha = torch.sigmoid(logits)
+    gx = (torch.abs(torch.diff(alpha, dim=2))
+          - torch.abs(torch.diff(alpha_gt, dim=2)))
+    gy = (torch.abs(torch.diff(alpha, dim=1))
+          - torch.abs(torch.diff(alpha_gt, dim=1)))
+    return bce + 0.5 * (torch.abs(gx).mean() + torch.abs(gy).mean())

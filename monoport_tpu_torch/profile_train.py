@@ -7,8 +7,9 @@ Times one f32 3x3 convolution 256 -> 128 at 128^2, batch 2 (the first
 conv of the netG hourglass's ConvBlocks at its 512^2 training shape),
 forward and forward + backward (CUDA events, mean of 5 after a warm-up),
 with cuDNN's heuristic pick (TF32 off, as chip_smoke's phases run),
-cuDNN's timed pick (``cudnn.benchmark``, what ``create_train_state`` sets
-on the card), PyTorch's own convolution (cuDNN off) and cuDNN with TF32.
+cuDNN's timed pick (``cudnn.benchmark``, what the training apps set on
+the card through ``train_step.timed_convolutions``), PyTorch's own
+convolution (cuDNN off) and cuDNN with TF32.
 Each mode runs in a process of its own: PyTorch caches a shape's choice.
 One JSON line a mode, then the card's name and power limit.
 """

@@ -36,8 +36,10 @@ SMALL = dict(render_size=32, fine_res=33, taps=4, march_levels=(9, 17),
              window=24)
 
 
-def _opts(kind):
+def _opts(kind, soft=False):
     o = {"projection": "orthogonal", "normalizer": {"IMF": "PIFuNomalizer"}}
+    if soft:
+        o["normalizer"].update(soft_onehot=True, soft_dim=8)
     if kind == "G":
         o.update(backbone={"IMF": "PIFuHGFilters", "num_stack": 1,
                            "num_hourglass": 1, "hourglass_dim": 64,
@@ -184,3 +186,89 @@ def test_dense_hierarchy_and_clip_paths_run(setup):
     vol = HierarchicalRecon(resolutions=(5, 9), budgets=(0, 1024))(
         lambda pts: torch.sigmoid(4.0 - 8.0 * pts.norm(dim=-1, keepdim=True)))
     assert vol.shape == (9, 9, 9) and 0.0 < float(vol.mean()) < 1.0
+
+
+# -- soft-onehot z: the per-point fallback of the JAX engine -------------------
+ROT_CALIB = np.asarray([[[0.93, 0.02, 0.30, 0.05],
+                         [-0.05, 0.99, 0.17, -0.02],
+                         [0.24, -0.12, 0.92, 0.01],
+                         [0.0, 0.0, 0.0, 1.0]]], np.float32)
+
+
+@pytest.fixture(scope="module")
+def soft(setup):
+    """The setup's nets beside soft-onehot ones (``soft_dim`` 8) of the same
+    architecture, weights drawn by JAX and carried across."""
+    image, calib = setup["image"], setup["calib"]
+    pts = jnp.zeros((1, 8, 3), jnp.float32)
+    jg = JaxNet(JCN(_opts("G", soft=True)))
+    jc = JaxNet(JCN(_opts("C", soft=True)))
+    pg = jg.init(jax.random.PRNGKey(2), jnp.asarray(image), pts, calib)
+    pc = jc.init(jax.random.PRNGKey(3), jnp.asarray(image), pts, calib,
+                 feat_prior=jnp.zeros((1, 32, 32, 64)))
+    tree = lambda p: jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                  p["params"])
+    return {"G": (jg, pg, weights.build_net(CN(_opts("G", soft=True)),
+                                            tree(pg), device="cpu")),
+            "C": (jc, pc, weights.build_net(CN(_opts("C", soft=True)),
+                                            tree(pc), device="cpu"))}
+
+
+SOFT_FRAMES = {"G_frontal": ("G", "ray", None),
+               "G_rotated": ("G", "ray", ROT_CALIB),
+               "C_frontal": ("C", "ray", None),
+               "C_dense": ("C", "dense", None)}
+
+
+@pytest.mark.parametrize("name", sorted(SOFT_FRAMES))
+def test_soft_onehot_frames_match_jax_engine(setup, soft, name):
+    """A net with soft-onehot z gets no ray, grid or anchored query, as in
+    the JAX engine: a soft-onehot netG's frontal frame takes the hierarchy
+    (the frame keeps 'sdf'), its rotated frame refines per point; a
+    soft-onehot netC's colour runs per point, on a frontal and on a dense
+    frame. Each frame against the JAX engine's, at this file's
+    tolerances."""
+    which, mode, calib = SOFT_FRAMES[name]
+    jg, jc, pg, pc = setup["jax"]
+    tg, tc = setup["port"]
+    if which == "G":
+        jg, pg, tg = soft["G"]
+    else:
+        jc, pc, tc = soft["C"]
+    image = setup["image"]
+    calib = setup["calib"] if calib is None else calib
+    march = (9, 17) if mode == "ray" else None
+    jeng = JaxEngine(jg, jc, recon=JaxRecon(resolutions=(9, 17),
+                                            budgets=(0, 2048)),
+                     config=JaxEngineCfg.flat(
+                         render_size=32, mode=mode, fine_res=33, ray_taps=4,
+                         march_levels=march, ray_window=24))
+    want = jeng.frame(pg, jnp.asarray(image), pc, jnp.asarray(image),
+                      jnp.asarray(calib))
+    teng = ReconEngine(tg, tc, recon=HierarchicalRecon(resolutions=(9, 17),
+                                                       budgets=(0, 2048)),
+                       config=EngineCfg(render_size=32, ray=RayCfg(
+                           mode=mode, fine_res=33, taps=4, window=24,
+                           march_levels=march)), device="cpu")
+    assert (teng.head_g is None) == (which == "G")
+    assert (teng.head_c is None) == (which == "C")
+    got = teng.frame(torch.from_numpy(image), torch.from_numpy(image), calib)
+    assert set(got) == set(want)
+    assert ("sdf" in got) == (name in ("G_frontal", "C_dense"))
+    va, vb = got["valid"].numpy(), np.asarray(want["valid"])
+    assert vb.mean() > 0.05                  # the random net does hit
+    assert (va != vb).mean() < FLIP_FRACTION
+    for key, atol in (("depth", 2e-4), ("render_norm", 2e-3),
+                      ("render_tex", 2e-3)):
+        a = got[key].numpy().astype(np.float64)
+        b = np.asarray(want[key], np.float64)
+        ok = np.isfinite(b)                  # depth_peel's 0/0, both sides
+        np.testing.assert_array_equal(np.isfinite(a), ok, err_msg=key)
+        frac = (np.abs(a - b)[ok] > atol).sum() / a.size
+        assert frac < FLIP_FRACTION, (key, frac)
+    if "compact_dropped" in want:
+        np.testing.assert_array_equal(got["compact_dropped"].numpy(),
+                                      np.asarray(want["compact_dropped"]))
+    if "recon_counts" in want:
+        np.testing.assert_array_equal(got["recon_counts"].numpy(),
+                                      np.asarray(want["recon_counts"]))

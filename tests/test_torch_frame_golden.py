@@ -14,8 +14,14 @@ frame (``frame_check.quality_config``: ``mode='dense'``, the 257^3
 hierarchy, identity calib) in ``.../frame_golden_dense.npz``, with
 ``recon_counts`` and ``sdf`` at every fourth voxel and without the image
 (it is the frontal golden's). ``--write`` takes the names of the goldens
-to write (``frontal``, ``rotated``, ``dense``; all three by default; the
-dense frame alone takes about half a minute).
+to write (``frontal``, ``rotated``, ``dense``, ``softonehot``; all four
+by default; the dense frame alone takes about half a minute).
+``softonehot``: the frontal frame of the seeded soft-onehot netG
+(``tests/torch_reference_state.soft_netg_state``: the committed netG's
+architecture with 64 soft-onehot z bins, head input 320) with the
+committed netC, in ``.../frame_golden_softonehot.npz`` with ``sdf`` at
+every fourth voxel and ``recon_counts`` (a soft-onehot netG's frontal
+frame takes the hierarchy, then ``ray_refine`` per point).
 
 The slow tests run the port's CPU frames, full width, on the stored image and hold them
 to the goldens with ``frame_check.compare_to_golden``; ``chip_smoke.py``
@@ -29,14 +35,18 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import torch_reference_state as helper  # noqa: E402
 from monoport_tpu_torch import frame_check  # noqa: E402
 
 
 def write_golden(path: str = frame_check.GOLDEN,
                  rotated_path: str = frame_check.GOLDEN_ROTATED,
                  dense_path: str = frame_check.GOLDEN_DENSE,
-                 names=("frontal", "rotated", "dense")) -> dict:
+                 soft_path: str = frame_check.GOLDEN_SOFTONEHOT,
+                 names=("frontal", "rotated", "dense", "softonehot")
+                 ) -> dict:
     import jax
     import jax.numpy as jnp
 
@@ -73,20 +83,25 @@ def write_golden(path: str = frame_check.GOLDEN,
         config=EngineCfg.flat(mode="dense", compute_dtype=jnp.float32,
                               use_pallas=False))
     eye = np.eye(4, dtype=np.float32)[None]
+    soft = ReconEngine(MonoPortNet(helper.soft_netg_opts()), netC,
+                       recon=recon, config=eng.config)
     for name, target, calib, engine in (
             ("frontal", path, eye, eng),
             ("rotated", rotated_path, frame_check.rotated_calib(), eng),
-            ("dense", dense_path, eye, dense)):
+            ("dense", dense_path, eye, dense),
+            ("softonehot", soft_path, eye, soft)):
         if name not in names:
             continue
-        out = engine.frame(params_g, jnp.asarray(image), params_c,
+        weights_g = (helper.flax_variables(helper.soft_netg_state())
+                     if name == "softonehot" else params_g)
+        out = engine.frame(weights_g, jnp.asarray(image), params_c,
                            jnp.asarray(image), calib)
         golden = {"image": image, "calib": calib,
                   "depth": np.asarray(out["depth"], np.float32),
                   "valid": np.asarray(out["valid"], bool),
                   "render_norm": np.asarray(out["render_norm"], np.float32),
                   "render_tex": np.asarray(out["render_tex"], np.float32)}
-        if name == "dense":
+        if name in ("dense", "softonehot"):
             k = frame_check.SDF_STRIDE
             del golden["image"]
             golden["recon_counts"] = np.asarray(out["recon_counts"], np.int32)
@@ -102,11 +117,14 @@ def write_golden(path: str = frame_check.GOLDEN,
     return goldens
 
 
-def _cpu_frame(golden: dict, config=frame_check.rtl_config) -> dict:
+def _cpu_frame(golden: dict, config=frame_check.rtl_config,
+               soft: bool = False) -> dict:
     from monoport_tpu_torch.engine import ReconEngine
     from monoport_tpu_torch.weights import load_default_networks
 
     netG, netC = load_default_networks(device="cpu")
+    if soft:
+        netG = helper.soft_netg("cpu")
     recon, cfg = config(torch.float32)
     eng = ReconEngine(netG, netC, recon=recon, config=cfg, device="cpu")
     image = torch.from_numpy(golden["image"])
@@ -162,6 +180,24 @@ def test_cpu_dense_frame_matches_golden():
     assert "OVER" not in eng.band_report(out)
 
 
+@pytest.mark.slow
+def test_cpu_softonehot_frame_matches_golden():
+    """The seeded soft-onehot netG's f32 frontal frame on the CPU: no ray
+    query (the hierarchy, then per-point refines), held to the JAX
+    golden at ``F32_SOFT_LIMITS``, its volume and ``recon_counts`` too."""
+    golden = frame_check.load_golden(frame_check.GOLDEN_SOFTONEHOT)
+    golden["image"] = frame_check.load_golden()["image"]
+    eng, out = _cpu_frame(golden, soft=True)
+    assert eng.head_g is None and eng.head_c is not None
+    res = frame_check.compare_to_golden(out, golden,
+                                        frame_check.F32_SOFT_LIMITS)
+    assert res["ok"], res
+    sdf = frame_check.compare_sdf(out, golden)
+    assert sdf["ok"], sdf
+    np.testing.assert_allclose(out["recon_counts"].numpy(),
+                               golden["recon_counts"], rtol=2e-3)
+
+
 def _synthetic_frame():
     """A 10x10-pixel subject on the golden's canvases: small against the
     canvas, as the real subject is (6% of it)."""
@@ -196,8 +232,9 @@ def test_compare_to_golden_counts_over_the_subject(fault):
 if __name__ == "__main__":
     if sys.argv[1:2] != ["--write"]:
         sys.exit("usage: python tests/test_torch_frame_golden.py --write "
-                 "[frontal] [rotated] [dense]")
-    chosen = tuple(sys.argv[2:]) or ("frontal", "rotated", "dense")
+                 "[frontal] [rotated] [dense] [softonehot]")
+    chosen = tuple(sys.argv[2:]) or ("frontal", "rotated", "dense",
+                                     "softonehot")
     for name, g in write_golden(names=chosen).items():
         print(name, {k: (v.shape, str(v.dtype)) for k, v in g.items()},
               "valid fraction", float(g["valid"].mean()),

@@ -1,8 +1,9 @@
 """PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
 perception, render, host pipeline, the alternative backbones, the
-checkpoint converter and training included) and chip_smoke.py import
-without pulling in jax or monoport_tpu (checked in a fresh interpreter,
-since this test process has both loaded)."""
+checkpoint converter, training, the perception nets' training and the
+utilities included) and chip_smoke.py import without pulling in jax or
+monoport_tpu, nor matplotlib (checked in a fresh interpreter, since this
+test process has both loaded)."""
 
 import os
 import subprocess
@@ -35,8 +36,17 @@ assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
         "monoport_tpu_torch.utils.params_io",
         "monoport_tpu_torch.apps.train",
         "monoport_tpu_torch.apps.train_capsule_netG",
-        "monoport_tpu_torch.apps.train_capsule_netC"} <= set(mods), mods
+        "monoport_tpu_torch.apps.train_capsule_netC",
+        "monoport_tpu_torch.training.matting",
+        "monoport_tpu_torch.training.detection",
+        "monoport_tpu_torch.apps.train_matting",
+        "monoport_tpu_torch.apps.train_detection",
+        "monoport_tpu_torch.utils.compile_cache",
+        "monoport_tpu_torch.utils.plot",
+        "monoport_tpu_torch.utils.objloader_native"} <= set(mods), mods
 assert not bad, bad
+# utils.plot imports matplotlib inside its function only
+assert "matplotlib" not in sys.modules
 """
 
 

@@ -229,3 +229,65 @@ def alt_netg_state(imf: str) -> dict:
     state[f"{last}.weight"][:, -1] = -8.0
     state[f"{last}.bias"].zero_()
     return state
+
+
+# the soft-onehot netG of chip_smoke.py's phase softonehot and of
+# data/frame_golden_softonehot.npz, and its weights' seed
+SOFT_NETG_SEED = 23
+SOFT_DIM = 64
+
+
+def soft_netg_opts() -> dict:
+    """The committed netG's config (4-stack HGFilter, GroupNorm) with the
+    soft-onehot z feature of ``SOFT_DIM`` bins: head 320-1024-512-256-
+    128-1."""
+    from monoport_tpu_torch.config import get_cfg_defaults
+
+    opt = get_cfg_defaults().netG.clone()
+    opt.normalizer.soft_onehot = True
+    opt.normalizer.soft_dim = SOFT_DIM
+    return opt
+
+
+def soft_netg(device):
+    """The soft-onehot netG with ``soft_netg_state``'s weights on
+    ``device``."""
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.weights import build_net
+
+    return build_net(CN(soft_netg_opts()), soft_netg_state(), device)
+
+
+def soft_netg_state() -> dict:
+    """The seeded port state dict of the soft-onehot netG at full width.
+
+    A seeded head's logits hardly vary with z, so its occupancy has no
+    surface a ray can cross stably. Here the head's last layer gives the
+    logit 8 (f - 1.2) - 3200 max(|z| - 0.3, 0), f its seeded feature
+    term: its feature weights are scaled by 8, its bias is -9.6 and its
+    z-bin weights are the ramp in z (the soft-onehot interpolation between
+    two bins keeps it piecewise linear). A column is occupied in a slab of
+    half-thickness 0.3 + (f - 1.2) / 400 about z = 0 where f exceeds 1.2,
+    which on the held-out capsule render is mostly the subject (f has a
+    median of 2.2 on the subject and of 0.09 off it), and empty
+    elsewhere. The steep walls (in z, 25 logits a fine voxel; across the
+    silhouette, 8 a unit of f) keep the hierarchy's band of uncertain
+    voxels thin, inside the real-time budgets, and the surface away from
+    the knife edge of a rounding: the port's f32 features on the CPU are
+    8e-5 of their largest value off JAX's f64, whose f32 ones are 2e-5
+    off."""
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.models import MonoPortNet
+    from monoport_tpu_torch.models.monoport_net import head_channels_for
+
+    opt = CN(soft_netg_opts())
+    widths = head_channels_for(opt)
+    net = MonoPortNet(opt, head_channels=widths)
+    state = seeded_state(net, SOFT_NETG_SEED)
+    last = f"surface_classifier.filters_{len(widths) - 2}"
+    z = np.linspace(-1.0, 1.0, SOFT_DIM, dtype=np.float32)
+    state[f"{last}.weight"] *= 8.0
+    state[f"{last}.weight"][:, -SOFT_DIM:] = torch.from_numpy(
+        -3200.0 * np.maximum(np.abs(z) - 0.3, 0.0))
+    state[f"{last}.bias"].fill_(-9.6)
+    return state
