@@ -134,6 +134,31 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     alpha IOU / box IOU, precision and recall, none of our kernels
     launched.
 
+16. sharded (run after phase 13, whose training apps have set cuDNN's
+    timed algorithms: an f32 netG step on cuDNN's heuristic picks takes
+    seconds, and a shape keeps its first pick): the engine's ``mesh=`` and
+    the data-parallel step. (a) A world of one rank on NCCL (a file store in a
+    temporary directory): the bf16 frontal and rotated frames of the
+    real-time engine on ``make_mesh(1)``, timed with the counts zeroed and
+    read around them (phases 4 and 5's launches), no stream sync,
+    bit-equal to the frames without a mesh; one phase-13 netG step (SGD,
+    f32) on that mesh against the step without one (bit-equal, or where
+    two plain steps differ too, within the sharded step's tolerance). (b)
+    Two ranks on the one card over gloo (``torch.multiprocessing``
+    spawn), each with the committed nets in the bf16 real-time engine on a
+    ``points`` mesh of 2: every kernel call of the unsharded frame, sharded
+    over the mesh, bit-equal to the unsharded call; the frontal and
+    rotated frames within ``frame_check.BF16_LIMITS`` of the single-card
+    frame (the largest differences printed), ``compact_dropped`` equal;
+    each rank's launches those of phases 4 and 5; then one f32 step
+    (TF32 off) of the phase-13 netG on its batch and of a small
+    ``batch_train`` netG on a ``data`` mesh of 2, held to the single-card
+    step on the same global batch (loss 1e-6, parameters and running
+    stats atol 5e-5 / rtol 5e-3, the JAX package's sharded-step
+    tolerance), the ranks' parameters and running stats equal. The times
+    (frame ms a rank, step ms) on a line of their own with the card: two
+    gloo ranks sharing one card are a correctness run, no scaling figure.
+
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
 """
@@ -713,6 +738,21 @@ def golden_phase(eng32, out16, image, golden, limits16, view: str,
     return out32
 
 
+# the launches of a bf16 frame at the real-time operating point
+FRONTAL_EXPECT = {"fused_ray_mlp": 4, "fused_mlp": 0, "fused_anchor_mlp": 0,
+                  "fused_gather_mlp": 0, "mix_rows": 0}
+
+
+def rotated_expect(plan: tuple) -> dict:
+    """A rotated frame's launches from its anchor plan: the per-point MLP
+    for the march and each per-point refine level, the anchored MLP (and
+    in bf16 its weighted-row pass) for each anchored level."""
+    anchored = sum(1 for k in plan if k)
+    return {"fused_ray_mlp": 0, "fused_gather_mlp": 0,
+            "fused_mlp": 1 + sum(1 for k in plan if not k),
+            "fused_anchor_mlp": anchored, "mix_rows": anchored}
+
+
 def frame_phases(netG, netC, counters: dict, card: str) -> dict:
     """The frontal and the rotated frame. -> launches by kernel, each
     from the run of the path that launches it."""
@@ -737,10 +777,8 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
 
     # frontal: 4 ray-MLP launches a frame and no other
     out, med, launches = timed_frames(
-        eng, image, golden["calib"], counters,
-        {"fused_ray_mlp": 4, "fused_mlp": 0, "fused_anchor_mlp": 0,
-         "fused_gather_mlp": 0, "mix_rows": 0},
-        "frontal", card)
+        eng, image, golden["calib"], counters, FRONTAL_EXPECT, "frontal",
+        card)
     total = {"fused_ray_mlp": launches["fused_ray_mlp"]}
     frontal = out
     profile_phase(eng, image, golden["calib"], card, med, "frontal")
@@ -752,11 +790,7 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
     plan = eng._rot_anchor_plan(calib, image.shape[1])
     if [k or 0 for k in plan] != rotated["anchor_plan"].tolist():
         fail(f"anchor plan {plan} != the golden's {rotated['anchor_plan']}")
-    expect = {"fused_ray_mlp": 0, "fused_gather_mlp": 0,
-              "fused_mlp": 1 + sum(1 for k in plan if not k),
-              "fused_anchor_mlp": sum(1 for k in plan if k)}
-    # the bf16 anchored route: one weighted-row pass an anchored call
-    expect["mix_rows"] = expect["fused_anchor_mlp"]
+    expect = rotated_expect(plan)
     out, med, launches = timed_frames(eng, image, calib, counters, expect,
                                       "rotated", card)
     total.update({k: launches[k] for k in ("fused_mlp", "fused_anchor_mlp")})
@@ -1099,6 +1133,370 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
     if any(diffs[k] > 0 for k in ("depth", "valid", "render_norm", "mask")) \
             or diffs["render_tex"] > 1e-5:
         fail(f"frames() differs from frame(): {diffs}")
+    return total
+
+
+# phase 16: the engine's mesh and the data-parallel step. The two ranks
+# share the one card over gloo, which carries CUDA tensors through the
+# host: a run of the sharded paths for correctness, no scaling figure.
+SHARDED_FRAMES = 2
+# SGD (its update is linear in the gradient: Adam's first update is about
+# lr * sign(g), which a rounding-noise gradient flips) with momentum
+SHARDED_TX = dict(optim="sgd", learning_rate=0.5, momentum=0.9)
+# the JAX package's tolerance for its sharded step (tests/test_sharding.py)
+SHARDED_STEP_LIMITS = {"loss_atol": 1e-6, "atol": 5e-5, "rtol": 5e-3}
+
+
+def _step_close(got: dict, want: dict) -> dict:
+    """The largest |difference| over every tensor of two state dicts, and
+    whether all are within SHARDED_STEP_LIMITS."""
+    import torch
+
+    worst, ok = 0.0, True
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        ok &= bool((d <= SHARDED_STEP_LIMITS["atol"]
+                    + SHARDED_STEP_LIMITS["rtol"] * w.abs()).all())
+    return {"max_abs_diff": worst, "within": ok}
+
+
+def _small_bn_netg():
+    """A small netG with train-mode BatchNorm (1-stack HGFilter at 32
+    channels), weights seeded on the CPU."""
+    import torch
+
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.models.monoport_net import (MonoPortNet,
+                                                        head_channels_for)
+    from monoport_tpu_torch.parallel import train_step as ts
+
+    opts = CN({"projection": "orthogonal",
+               "normalizer": {"IMF": "PIFuNomalizer"},
+               "backbone": {"IMF": "PIFuHGFilters", "num_stack": 1,
+                            "num_hourglass": 1, "hourglass_dim": 32,
+                            "norm": "batch_train", "hg_down": "ave_pool"},
+               "head": {"IMF": "PIFuNetGMLP"}, "loss": {"IMF": "MSE"}})
+    net = MonoPortNet(opts, head_channels_for(opts))
+    return ts.init_params(net, torch.Generator().manual_seed(0)).cuda()
+
+
+def _small_bn_batch() -> dict:
+    """4 images at 128^2 and 2048 points an image, numpy-seeded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    batch = {"images": rng.rand(4, 128, 128, 3) * 2 - 1,
+             "points": rng.uniform(-1.0, 1.0, (4, 2048, 3)),
+             "calibs": np.tile(np.eye(4), (4, 1, 1)),
+             "labels": (rng.rand(4, 2048, 1) > 0.5) * 1.0}
+    return {k: torch.from_numpy(v.astype(np.float32)).cuda()
+            for k, v in batch.items()}
+
+
+def _one_step(make_net, batch: dict, mesh) -> dict:
+    """One step of a fresh ``make_net()`` on ``batch`` (under ``mesh``, or
+    none). -> its loss, its state dict on the host, its ms."""
+    import torch
+
+    from monoport_tpu_torch.parallel import train_step as ts
+
+    net = make_net()
+    state = ts.create_train_state(net, ts.make_optimizer(**SHARDED_TX),
+                                  mesh=mesh)
+    step = ts.make_train_step(net, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, loss = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+           "state": {k: v.detach().cpu() for k, v in
+                     net.state_dict().items()}}
+    del net, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _committed_netg():
+    """-> a maker of fresh copies of the committed netG (on the card)."""
+    from monoport_tpu_torch import weights
+    from monoport_tpu_torch.config import get_cfg_defaults
+
+    params = weights.load_params(os.path.join(weights.DATA,
+                                              "netg_capsule.npz"))[0]
+    return lambda: weights.build_net(get_cfg_defaults().netG, params, "cuda")
+
+
+def _record_heads(fn):
+    """The kernel calls (name, kernel, packed, inputs) that ``fn()``
+    makes through the engine's three MLP wrappers."""
+    from monoport_tpu_torch import engine
+
+    calls = []
+    kept = {k: getattr(engine, k)
+            for k in ("apply_ray", "apply_anchor", "apply_mlp")}
+
+    def recorder(name, kernel):
+        def record(packed, *args):
+            calls.append((name, kernel, packed, args))
+            return kernel(packed, *args)
+        return record
+
+    for name, kernel in kept.items():
+        setattr(engine, name, recorder(name, kernel))
+    try:
+        fn()
+    finally:
+        for name, kernel in kept.items():
+            setattr(engine, name, kernel)
+    return calls
+
+
+def sharded_rank(rank: int, tmp: str) -> None:
+    """Phase 16b, one of two gloo ranks on the one card: the committed nets
+    through the bf16 real-time engine on a ``points`` mesh of 2, frontal
+    and rotated; the phase-13 netG's and a small BatchNorm netG's step on
+    a ``data`` mesh of 2 (f32, TF32 off). Writes its readings to
+    ``tmp/rank<r>.pt``."""
+    import functools
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=2)
+    try:
+        from monoport_tpu_torch import frame_check, weights
+        from monoport_tpu_torch.engine import ReconEngine
+        from monoport_tpu_torch.ops.cuda import fused_gather_mlp as tgather
+        from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
+        from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+        from monoport_tpu_torch.ops.cuda import mix_rows
+        from monoport_tpu_torch.parallel.mesh import make_mesh
+        from monoport_tpu_torch.parallel.train_step import timed_convolutions
+
+        counters = {"fused_ray_mlp": tray.apply_ray,
+                    "fused_mlp": tmlp.apply_mlp,
+                    "fused_anchor_mlp": tray.apply_anchor,
+                    "fused_gather_mlp": tgather.apply_gather_ray,
+                    "mix_rows": mix_rows.launch_mix_rows}
+        netG, netC = weights.load_default_networks()
+        recon, cfg = frame_check.rtl_config(torch.bfloat16)
+        single = ReconEngine(netG, netC, recon=recon, config=cfg)
+        sharded = ReconEngine(netG, netC, recon=recon, config=cfg,
+                              mesh=make_mesh(2))
+        golden = frame_check.load_golden()
+        image = torch.from_numpy(golden["image"]).cuda()
+        views = {"frontal": (golden["calib"], FRONTAL_EXPECT),
+                 "rotated": (frame_check.rotated_calib(), None)}
+        res = {"frames": {}}
+        for view, (calib, expect) in views.items():
+            if expect is None:
+                expect = rotated_expect(single._rot_anchor_plan(
+                    calib, image.shape[1]))
+            calls = _record_heads(lambda: single.frame(image, image, calib))
+            heads = []
+            for name, kernel, packed, args in calls:
+                full = kernel(packed, *args)
+                part = sharded._shard_rows(
+                    functools.partial(kernel, packed))(*args)
+                heads.append({"kernel": name, "rows": int(args[0].shape[1]),
+                              "bit_equal": bool(torch.equal(full, part))})
+            ref = single.frame(image, image, calib)
+            sharded.frame(image, image, calib)                # warm-up
+            torch.cuda.synchronize()
+            for fn in counters.values():
+                fn.launches = 0
+            times = []
+            for _ in range(SHARDED_FRAMES):
+                t0 = time.perf_counter()
+                out = sharded.frame(image, image, calib)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            want = {k: expect[k] * SHARDED_FRAMES for k in launches}
+            diffs = {k: float((out[k].float() - ref[k].float()).abs().max())
+                     for k in ref if k != "compact_dropped"}
+            res["frames"][view] = {
+                "heads": heads, "launches": launches,
+                "launches_expected": want, "frame_ms": times,
+                "max_abs_diff": diffs,
+                "vs_single": frame_check.compare_to_golden(
+                    out, as_golden(ref), frame_check.BF16_LIMITS),
+                "compact_dropped_equal": bool(torch.equal(
+                    out["compact_dropped"], ref["compact_dropped"]))
+                if "compact_dropped" in ref else None}
+        del single, sharded
+        torch.cuda.empty_cache()
+
+        # the steps on cuDNN's timed algorithms, as phase 13's; not the
+        # frames: each process times its own picks, and a frame whose ranks
+        # sample features through different convolution algorithms gathers
+        # rows computed from other features than its own
+        timed_convolutions("cuda")
+        # rank 0 also runs the single-card step on the global batch
+        data = make_mesh(2, dp=2)
+        golden = dict(np.load(frame_check.GOLDEN_TRAIN))
+        res["train"] = {}
+        for name, make, batch in (
+                ("netG", _committed_netg(), _train_batch(golden, "g")),
+                ("bn_netG", _small_bn_netg, _small_bn_batch())):
+            res["train"][name] = {
+                "plain": _one_step(make, batch, None) if rank == 0
+                else None, "mesh": _one_step(make, batch, data)}
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_world1(netG, netC, counters: dict, card: str) -> dict:
+    """Phase 16a: a world of one rank on NCCL (a file store under a
+    temporary directory): the bf16 frontal and rotated frames of engines
+    on ``make_mesh(1)`` bit-equal to the unmeshed engine's, with the
+    launches of phases 4 and 5 and no stream sync; one phase-13 netG step
+    on that mesh against the step without one. -> the frames' launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        total: dict = {}
+        try:
+            mesh = make_mesh(1)
+            recon, cfg = frame_check.rtl_config(torch.bfloat16)
+            single = ReconEngine(netG, netC, recon=recon, config=cfg)
+            eng = ReconEngine(netG, netC, recon=recon, config=cfg, mesh=mesh)
+            golden = frame_check.load_golden()
+            image = torch.from_numpy(golden["image"]).cuda()
+            calib = frame_check.rotated_calib()
+            for view, c, expect in (
+                    ("frontal", golden["calib"], FRONTAL_EXPECT),
+                    ("rotated", calib, rotated_expect(
+                        single._rot_anchor_plan(calib, image.shape[1])))):
+                ref = single.frame(image, image, c)
+                out, _, launches = timed_frames(eng, image, c, counters,
+                                                expect, f"{view}_mesh1", card)
+                for k, n in launches.items():
+                    total[k] = total.get(k, 0) + n
+                same = {k: bool(torch.equal(out[k], ref[k])) for k in ref}
+                emit({"phase": "sharded_world1", "view": view,
+                      "backend": dist.get_backend(), "mesh": mesh.shape,
+                      "bit_equal": same, "card": card})
+                if not all(same.values()):
+                    fail(f"the {view} frame on a world-1 mesh differs from "
+                         f"the unmeshed frame: {same}")
+            make = _committed_netg()
+            batch = _train_batch(dict(np.load(frame_check.GOLDEN_TRAIN)),
+                                 "g")
+            plain = _one_step(make, batch, None)
+            meshed = _one_step(make, batch, mesh)
+            rerun = _one_step(make, batch, None)
+            same = all(torch.equal(meshed["state"][k], v)
+                       for k, v in plain["state"].items())
+            rerun_same = all(torch.equal(rerun["state"][k], v)
+                             for k, v in plain["state"].items())
+            close = _step_close(meshed["state"], plain["state"])
+            emit({"phase": "sharded_world1", "view": "train_step",
+                  "loss": meshed["loss"], "plain_loss": plain["loss"],
+                  "bit_equal": same, "plain_rerun_bit_equal": rerun_same,
+                  "max_abs_diff": close["max_abs_diff"],
+                  "plain_rerun_max_abs_diff": _step_close(
+                      rerun["state"], plain["state"])["max_abs_diff"],
+                  "step_ms": meshed["ms"], "card": card})
+            if meshed["loss"] != plain["loss"]:
+                fail("the world-1 mesh step's loss differs from the plain "
+                     "step's")
+            # the mesh step of a world of one runs the plain step's code;
+            # where two plain steps differ too (atomic adds in a backward),
+            # it is held to the sharded step's tolerance instead
+            if not same and (rerun_same or not close["within"]):
+                fail(f"the world-1 mesh step differs from the plain step "
+                     f"(plain rerun bit-equal: {rerun_same}): {close}")
+        finally:
+            dist.destroy_process_group()
+    return total
+
+
+def sharded_phase(netG, netC, counters: dict, card: str) -> dict:
+    """Phase 16 (module docstring). -> launches by kernel: this process's
+    world-1 frames and both ranks' sharded frames."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    total = sharded_world1(netG, netC, counters, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(tmp,), nprocs=2, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    timing = {"wall_s": wall, "card": card}
+    for r, res in enumerate(ranks):
+        for view, v in res["frames"].items():
+            heads = v["heads"]
+            emit({"phase": "sharded", "rank": r, "view": view,
+                  "backend": "gloo", "head_calls": len(heads),
+                  "heads_bit_equal": sum(h["bit_equal"] for h in heads),
+                  "head_rows": [h["rows"] for h in heads],
+                  "launches": v["launches"],
+                  "launches_expected": v["launches_expected"],
+                  "max_abs_diff": v["max_abs_diff"],
+                  "vs_single": v["vs_single"],
+                  "compact_dropped_equal": v["compact_dropped_equal"]})
+            timing[f"rank{r}_{view}_frame_ms"] = v["frame_ms"]
+            for k, n in v["launches"].items():
+                total[k] = total.get(k, 0) + n
+            if not heads or not all(h["bit_equal"] for h in heads):
+                fail(f"rank {r}: a sharded {view} head call differs from "
+                     f"the unsharded call: {heads}")
+            if v["launches"] != v["launches_expected"]:
+                fail(f"rank {r}: sharded {view} frames launched "
+                     f"{v['launches']}, expected {v['launches_expected']}")
+            if not v["vs_single"]["ok"] or v["compact_dropped_equal"] is \
+                    False:
+                fail(f"rank {r}: the sharded {view} frame is off the "
+                     f"single-card frame: {v['vs_single']}")
+        for name, t in res["train"].items():
+            plain = ranks[0]["train"][name]["plain"]
+            mine = t["mesh"]
+            close = _step_close(mine["state"], plain["state"])
+            peer = ranks[0]["train"][name]["mesh"]["state"]
+            equal = all(torch.equal(mine["state"][k], v)
+                        for k, v in peer.items())
+            loss_diff = abs(mine["loss"] - plain["loss"])
+            emit({"phase": "sharded_train", "rank": r, "net": name,
+                  "mesh": {"data": 2, "points": 1}, "loss": mine["loss"],
+                  "plain_loss": plain["loss"], "loss_abs_diff": loss_diff,
+                  **close, "ranks_equal": equal,
+                  "limits": SHARDED_STEP_LIMITS})
+            timing[f"rank{r}_{name}_step_ms"] = mine["ms"]
+            if r == 0:
+                timing[f"{name}_single_step_ms"] = plain["ms"]
+            if loss_diff > SHARDED_STEP_LIMITS["loss_atol"] or \
+                    not close["within"] or not equal:
+                fail(f"rank {r}: the dp=2 {name} step is off the "
+                     f"single-card step: loss {loss_diff}, {close}, "
+                     f"ranks equal {equal}")
+    emit({"phase": "sharded_times", **timing,
+          "note": "two gloo ranks sharing one card: no scaling figure"})
     return total
 
 
@@ -2074,6 +2472,9 @@ def main() -> int:
     for name, n in capsule_app_phase(netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     trainer_phase(card)
+    torch.cuda.empty_cache()
+    for name, n in sharded_phase(netG, netC, counters, card).items():
+        launches[name] = launches.get(name, 0) + n
     train_perception_phase(counters, card)
 
     emit(kernels_line(rows, launches))

@@ -11,6 +11,12 @@ Arguments before a literal ``--`` go to argparse, config overrides after
 it. The nets run on ``cuda`` unless ``--device`` names another device.
 Items are made in numpy (forked loader workers for the file-backed
 datasets); batches go to the device in this process.
+
+Over several cards, one process a card (data parallel, the Trainer's
+mesh; every rank draws the same global batch and trains on its piece):
+    torchrun --nproc-per-node=N -m monoport_tpu_torch.apps.train ...
+With ``WORLD_SIZE`` > 1 the process group is initialized from torchrun's
+environment: NCCL on the cards, gloo with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from ..config import get_cfg_defaults
 from ..models.monoport_net import (MonoPortNet, backbone_channels,
                                    head_channels_for)
+from ..parallel.mesh import rank_device
 from ..parallel.train_step import init_params, timed_convolutions
 from ..training import Trainer
 from ..training.datasets import (PPLDynamicDataset, PPLStaticDataset,
@@ -139,6 +146,12 @@ def main(argv=None):
     """-> (the last epoch's mean logged loss, the Trainer)."""
     args, cfg = parse_args(argv)
     device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        torch.distributed.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo")
+        device = rank_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
     compile_cache.enable()
     timed_convolutions(device)
     net = build_train_net(cfg, args.net)

@@ -46,6 +46,24 @@ of the march, and ``mode='ray'`` then refines with the anchored query of
 the single coarse-to-fine level. A mesh comes from a dense frame's ``sdf``
 through ``recon/marching.extract_mesh``.
 
+With a ``mesh`` whose ``points`` axis is wider than 1 (``parallel.mesh``;
+one process a rank, every rank calling ``frame`` with the same inputs),
+the query batches are split over that axis, as the JAX engine's
+``_shard_points`` and ``_shard_map_head`` split them: each per-point or
+per-ray query (the occupancy, ray-tap, anchored and colour closures) runs
+whole, sampling and head, on this rank's contiguous share of its points
+or rays, and the grid queries run their heads on this rank's share of the
+flattened ray axis; the rows are padded up to a multiple of the axis
+size, and one all-gather over the axis's process group puts the outputs
+back together. Features stay replicated: every rank computes them, and
+every row is computed by one rank, once. So a sharded frame equals the
+single-card frame bit for bit where the ranks' convolutions pick the same
+algorithms; under cuDNN's timed algorithms (``cudnn.benchmark``) each
+process times its own, and a rank gathers rows computed from features a
+few ulps off its own (on an H100: within ``frame_check.BF16_LIMITS``, not
+bit-equal). The pad amounts come from shapes, so a frame still reads no
+device value on the host.
+
 Dtype policy (JAX ``_cast`` / ``_feats_f32``): the backbones run in the
 compute dtype, their feature maps are upcast to f32 before the queries,
 and the MLPs run in the compute dtype inside the kernels with f32
@@ -64,6 +82,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import CN
 from .models import MonoPortNet
@@ -71,6 +90,7 @@ from .ops.constants import upload_async
 from .ops.cuda.fused_mlp import apply_mlp, pack_mlp_params
 from .ops.cuda.fused_ray_mlp import (apply_anchor, apply_ray,
                                      pack_ray_mlp_params)
+from .parallel.mesh import POINT_AXIS, Mesh, check_mesh
 from .recon.depth_peel import (SurfaceMaps, colorize, depth_peel,
                                shade_normal, visualize)
 from .recon.hierarchy import HierarchicalRecon
@@ -247,14 +267,21 @@ class ReconEngine:
       device: ``None`` = ``cuda`` (raises when CUDA is absent); pass
         ``"cpu"`` to run on the CPU, where the MLP kernels take their
         plain versions.
+      mesh: optional ``parallel.mesh.Mesh``; its ``points`` axis splits
+        the query batches (module docstring). This rank must be one of
+        its ranks.
     """
 
     def __init__(self, netG: MonoPortNet, netC: Optional[MonoPortNet] = None,
                  recon: Optional[HierarchicalRecon] = None,
-                 config: Optional[EngineCfg] = None, device=None):
+                 config: Optional[EngineCfg] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         cfg = config or EngineCfg()
         self.config = cfg
         self.device = resolve_device(device)
+        if check_mesh(mesh) is not None and not mesh.active:
+            raise ValueError(f"rank {mesh.rank} is not a rank of the mesh")
+        self.mesh = mesh
         if cfg.ray.mode not in ("dense", "ray"):
             raise ValueError(f"unknown mode {cfg.ray.mode!r}")
         if cfg.ray.march_levels and (cfg.ray.mode != "ray"
@@ -293,6 +320,40 @@ class ReconEngine:
                                             dev)
                 self.head_c = lambda feat, z: apply_ray(ray_c, feat, z)
             self.point_c = self._point_color_head()
+        # the grid queries' heads take this rank's share of the rays
+        self.grid_g = self._shard_rows(self.head_g)
+        self.grid_c = self._shard_rows(self.head_c)
+
+    def _shard_rows(self, fn):
+        """``fn`` (tensors [B, R, ...] -> a tensor [B, R, ...], a map over
+        the rows of axis 1) run on this rank's contiguous share of the R
+        rows, padded with zero rows up to a multiple of the mesh's
+        ``points`` axis, and gathered over that axis (the JAX engine's
+        ``_shard_map_head``); ``fn`` itself without such an axis. The share
+        is a fresh tensor: the bf16 kernels encode a TMA map from its
+        pointer, which needs 16-byte aligned rows."""
+        mesh = self.mesh
+        if fn is None or mesh is None or mesh.shape[POINT_AXIS] == 1:
+            return fn
+        n = mesh.shape[POINT_AXIS]
+        i = mesh.index(POINT_AXIS)
+        group = mesh.group(POINT_AXIS)
+
+        def share(a: torch.Tensor, lo: int, hi: int, k: int) -> torch.Tensor:
+            out = a.new_zeros((a.shape[0], k) + tuple(a.shape[2:]))
+            out[:, :hi - lo] = a[:, lo:hi]
+            return out
+
+        def sharded(*arrays):
+            r = arrays[0].shape[1]
+            k = -(-r // n)
+            lo, hi = min(i * k, r), min((i + 1) * k, r)
+            out = fn(*(share(a, lo, hi, k) for a in arrays)).contiguous()
+            parts = [torch.empty_like(out) for _ in range(n)]
+            dist.all_gather(parts, out, group=group)
+            return torch.cat(parts, dim=1)[:, :r]
+
+        return sharded
 
     def _cast(self, net: MonoPortNet) -> MonoPortNet:
         """The net in the compute dtype on the engine's device (a copy
@@ -419,16 +480,18 @@ class ReconEngine:
         return tuple(plan)
 
     # -- query closures over one frame's features and calib ----------------
+    # (under a mesh the per-point and per-ray closures run whole on this
+    # rank's share, the grid closures shard inside, at their heads)
     def _query_occ_fn(self, feats, calib):
         def query_occ(pts):
             return self.netG.query(feats, pts, calib, head_fn=self.point_g)[0]
-        return query_occ
+        return self._shard_rows(query_occ)
 
     def _query_taps_fn(self, feats, calib):
         def query_taps(xy, z_taps):
             return self.netG.query_taps(feats, xy, z_taps, calib,
                                         head_taps_fn=self.head_g)[..., 0]
-        return query_taps
+        return self._shard_rows(query_taps)
 
     def _query_anchored_fn(self, feats, calib, anchors: int):
         """Anchored ray occupancy query of a rotated refine level (the
@@ -438,27 +501,27 @@ class ReconEngine:
             return self.netG.query_taps_anchored(
                 feats, xy, z_taps, calib, anchors=anchors,
                 head_anchor_fn=self.anchor_g)[..., 0]
-        return query_anchored
+        return self._shard_rows(query_anchored)
 
     def _query_grid_fn(self, feats, calib):
         def query_grid(xw, yw, wz):
             return self.netG.query_taps_grid(
                 feats, xw[None], yw[None], wz[None], calib,
-                head_taps_fn=self.head_g)[0, ..., 0]
+                head_taps_fn=self.grid_g)[0, ..., 0]
         return query_grid
 
     def _grid_color_fn(self, feats, calib):
         def color_grid(xw, yw, zw):
             return self.netC.query_taps_grid(
                 feats, xw[None], yw[None], zw[None, ..., None], calib,
-                head_taps_fn=self.head_c)[0, :, :, 0, :]
+                head_taps_fn=self.grid_c)[0, :, :, 0, :]
         return color_grid
 
     def _query_color_fn(self, feats, calib):
         def query_color(pts):
             return self.netC.query(feats, pts, calib,
                                    head_fn=self.point_c)[0].float()
-        return query_color
+        return self._shard_rows(query_color)
 
     def _texture_canvas(self, maps: SurfaceMaps, resolution: int,
                         color_grid=None, query_color=None,

@@ -19,6 +19,8 @@ inside, the convolutions run NCHW.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -44,11 +46,17 @@ class BatchNorm(nn.BatchNorm2d):
     reads them (``eval_net``). The update is flax's: the batch variance is
     E[x^2] - E[x]^2 (biased), where torch's own BatchNorm2d would put the
     unbiased variance into ``running_var`` and drift from flax's
-    ``batch_stats``."""
+    ``batch_stats``.
+
+    Under ``batch_stats_over`` the batch's E[x] and E[x^2] are the means
+    over a process group's ranks (a data-parallel step's global batch:
+    every rank holds as many images), through a differentiable all-reduce,
+    and every rank updates its running stats from the same values."""
 
     def __init__(self, channels: int, use_running_average: bool):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.use_running_average = use_running_average
+        self.stats_group = None        # (process group, its rank count)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_running_average or not self.training:
@@ -56,7 +64,13 @@ class BatchNorm(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         dims = (0, 2, 3)
         mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        sq = (x * x).mean(dims)
+        if self.stats_group is not None:
+            from torch.distributed.nn.functional import all_reduce
+
+            group, n = self.stats_group
+            mean, sq = all_reduce(torch.stack([mean, sq]), group=group) / n
+        var = torch.clamp(sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_((1 - m) * self.running_mean
@@ -67,6 +81,22 @@ class BatchNorm(nn.BatchNorm2d):
         inv = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[:, None, None]) * inv[:, None, None]
                 + self.bias[:, None, None])
+
+
+@contextlib.contextmanager
+def batch_stats_over(net: nn.Module, group, ranks: int):
+    """Inside, the train-mode ``BatchNorm`` layers of ``net`` average their
+    batch statistics over ``group``'s ``ranks`` ranks (None: nothing
+    changes)."""
+    norms = [] if group is None else [
+        m for m in net.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.stats_group = (group, ranks)
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.stats_group = None
 
 
 def make_norm(norm: str, channels: int, groups: int = 32) -> nn.Module:

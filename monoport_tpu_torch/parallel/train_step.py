@@ -21,8 +21,20 @@ The update rules are optax's, written on tensors, not torch.optim's
 
 ``TrainState`` holds the step (a host int: every count of the update
 derives from it), the module (its parameters, and its BatchNorm running
-stats as buffers) and the optimizer state. ``mesh=`` (data parallel over
-several cards) is ROADMAP queue 1 item 14; only ``None`` is accepted.
+stats as buffers) and the optimizer state.
+
+Under a ``parallel.mesh.Mesh`` of several ranks (data parallel, one
+process a rank): the state is replicated (``create_train_state``
+broadcasts the first rank's parameters and buffers), the step takes the
+global batch and each rank runs forward and backward on its piece
+(``mesh.shard_batch``: the batch over ``data``, the points over ``data``
+and ``points``), and one all-reduce averages the gradients and the loss
+over the mesh before the update, so the global-norm clip reads the global
+norm, as optax does under jit. Every loss of the package is a plain mean,
+so with equal pieces the mean over ranks is the loss of the global batch.
+BatchNorm's train-mode statistics are averaged over the ``data`` axis
+(``models.backbones.hourglass.batch_stats_over``), as the JAX step's batch
+mean is global.
 """
 
 from __future__ import annotations
@@ -33,7 +45,11 @@ from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+
+from ..models.backbones.hourglass import batch_stats_over
+from .mesh import DATA_AXIS, Mesh, check_mesh, shard_batch
 
 Schedule = Callable[[int], float]
 Tensors = list[torch.Tensor]
@@ -314,33 +330,57 @@ def timed_convolutions(device) -> None:
 
 
 def create_train_state(net: nn.Module, tx: Optimizer,
-                       generator: Optional[torch.Generator] = None
-                       ) -> TrainState:
+                       generator: Optional[torch.Generator] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """A state at step 0 over ``net``'s parameters, drawn anew from
     ``generator`` (``init_params``) when one is given, else as loaded.
-    Nothing process-wide changes: the training apps pick cuDNN's
-    algorithms themselves (``timed_convolutions``)."""
+    Under a mesh of several ranks every rank then takes the first rank's
+    parameters and buffers, whatever its generator drew. Nothing
+    process-wide changes: the training apps pick cuDNN's algorithms
+    themselves (``timed_convolutions``)."""
     if generator is not None:
         init_params(net, generator)
+    group = mesh.group() if check_mesh(mesh) is not None else None
+    if group is not None:
+        src = int(mesh.ranks.flat[0])
+        with torch.no_grad():
+            for t in list(net.parameters()) + list(net.buffers()):
+                dist.broadcast(t, src=src, group=group)
     net.requires_grad_(True).train()
     return TrainState(step=0, net=net, opt_state=tx.init(
         list(net.parameters())), tx=tx)
 
 
-def loss_step(state: TrainState, loss_fn: Callable, *batch) -> torch.Tensor:
+def _mesh_mean(tensors: Tensors, mesh: Mesh) -> Tensors:
+    """The mean of each tensor over the mesh's ranks: one all-reduce of
+    them all, flattened into one buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group())
+    flat.div_(mesh.size)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def loss_step(state: TrainState, loss_fn: Callable, *batch,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One optimizer step of ``state`` on ``loss_fn(state.net, *batch)``
-    (a parameter without a gradient steps on zeros). -> the loss before
-    the step, a device tensor (no host sync)."""
+    (a parameter without a gradient steps on zeros). Under a mesh of
+    several ranks the gradients and the loss are first averaged over its
+    ranks. -> the loss before the step, a device tensor (no host sync)."""
     params = state.params
     for p in params:
         p.grad = None
     loss = loss_fn(state.net, *batch)
     loss.backward()
-    state.apply_gradients([p.grad if p.grad is not None
-                           else torch.zeros_like(p) for p in params])
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    loss = loss.detach()
+    if mesh is not None and mesh.size > 1:
+        *grads, loss = _mesh_mean(grads + [loss], mesh)
+    state.apply_gradients(grads)
     for p in params:
         p.grad = None
-    return loss.detach()
+    return loss
 
 
 def _monoport_loss(net: nn.Module, batch: dict) -> torch.Tensor:
@@ -349,28 +389,41 @@ def _monoport_loss(net: nn.Module, batch: dict) -> torch.Tensor:
                train=True)[1]
 
 
-def make_train_step(net: nn.Module, mesh=None) -> Callable:
+def make_train_step(net: nn.Module, mesh: Optional[Mesh] = None
+                    ) -> Callable:
     """-> ``step(state, batch) -> (state, loss)``: forward (train mode,
     every stage), loss, backward and update of ``state`` in place. A batch
     holds images, points, calibs, labels and, for netC, 'feat_prior' (the
-    frozen netG's last feature stage, computed outside the step)."""
-    if mesh is not None:
-        raise ValueError("mesh= (data parallel over several cards) is not "
-                         "ported yet (ROADMAP queue 1 item 14)")
+    frozen netG's last feature stage, computed outside the step).
+
+    Under a mesh (module docstring) ``batch`` is the global batch, every
+    rank of the mesh calls the step with the same one, and the loss is the
+    global mean; an uneven split raises."""
+    sharded = check_mesh(mesh) is not None and mesh.size > 1
+    stats = (mesh.group(DATA_AXIS), mesh.shape[DATA_AXIS]) if sharded \
+        else (None, 1)
 
     def step_fn(state: TrainState, batch: dict):
         if state.net is not net:
             raise ValueError("the state holds another module")
         net.train()
-        return state, loss_step(state, _monoport_loss, batch)
+        if not sharded:
+            return state, loss_step(state, _monoport_loss, batch)
+        if not mesh.active:
+            raise RuntimeError(f"rank {mesh.rank} is outside the mesh: it "
+                               f"runs no step")
+        with batch_stats_over(net, *stats):
+            return state, loss_step(state, _monoport_loss,
+                                    shard_batch(mesh, batch), mesh=mesh)
 
     return step_fn
 
 
-def make_scan_train_step(net: nn.Module, mesh=None) -> Callable:
+def make_scan_train_step(net: nn.Module, mesh: Optional[Mesh] = None
+                         ) -> Callable:
     """-> ``run(state, stacked) -> (state, losses)``: the steps of a batch
     stacked on a leading step axis, in order (the same arithmetic as
-    ``make_train_step``)."""
+    ``make_train_step``; under a mesh each step's global batch)."""
     step_fn = make_train_step(net, mesh)
 
     def scan_fn(state: TrainState, stacked: dict):

@@ -12,13 +12,20 @@ stats included), ``opt_state`` (slot -> parameter name -> tensor),
 optimizer state, step, epoch and iteration. The loss is read on the host
 only every ``cfg.freq_plot`` steps.
 
-Data parallel over several cards is ROADMAP queue 1 item 14: with
-``use_mesh`` and more than one visible card the Trainer refuses to start
-rather than train on one.
+Data parallel: with ``use_mesh`` in a world of several ranks (an
+initialized process group, one process a rank, e.g. under ``torchrun``)
+the Trainer makes the JAX Trainer's (data, points) mesh (``mesh_shape``)
+and the step takes the global batch (``parallel/train_step``); the device
+``cuda`` is this rank's card (``parallel.mesh.rank_device``). Rank 0 alone
+logs, writes tensorboard and saves checkpoints; every rank loads one. A
+rank that the mesh leaves out (the dp-only mesh of the JAX Trainer, which
+leaves devices idle too) takes part in no collective and runs no step,
+and says so.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Iterable, Optional
 
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from ..models.monoport_net import eval_net
+from ..parallel.mesh import make_mesh, rank_device, world
 from ..parallel.train_step import (TrainState, create_train_state,
                                    make_optimizer, make_train_step)
 from ..weights import _as_state, resolve_device
@@ -38,16 +46,37 @@ def to_device(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def mesh_shape(world_size: int, batch_size: int,
+               num_sample_geo: int) -> Optional[tuple[int, int]]:
+    """The JAX Trainer's (dp, sp) choice for ``world_size`` ranks, or None
+    (no mesh): dp, the largest power of two dividing both the batch and
+    the world; sp, the rest of the world where it divides the point count;
+    else a dp-only mesh of dp ranks, which leaves the others out."""
+    if world_size <= 1:
+        return None
+    dp = 1
+    while (dp * 2 <= world_size and batch_size % (dp * 2) == 0
+           and world_size % (dp * 2) == 0):
+        dp *= 2
+    sp = world_size // dp
+    if num_sample_geo % sp == 0:
+        return dp, sp
+    if dp > 1:
+        return dp, 1
+    return None
+
+
 class Trainer:
     def __init__(self, net, cfg, use_mesh: bool = True,
                  steps_per_epoch: int = 1000, device=None):
-        self.device = resolve_device(device)
-        if (use_mesh and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise ValueError(
-                f"{torch.cuda.device_count()} cards are visible: training "
-                "over several cards is not ported yet (ROADMAP queue 1 item "
-                "14); pass use_mesh=False or make one card visible")
+        self.rank, world_size = world()
+        self.device = rank_device(resolve_device(device))
+        shape = (mesh_shape(world_size, cfg.batch_size,
+                            cfg.dataset.num_sample_geo) if use_mesh
+                 else None)
+        # every rank makes the mesh: its process groups are made together
+        self.mesh = (make_mesh(n_devices=shape[0] * shape[1], dp=shape[0])
+                     if shape else None)
         self.net = net.to(self.device)
         self.cfg = cfg
         self.epoch = 0
@@ -55,15 +84,27 @@ class Trainer:
 
         self.checkpoints_path = os.path.join(cfg.checkpoints_path, cfg.name)
         self.results_path = os.path.join(cfg.results_path, cfg.name)
-        os.makedirs(self.checkpoints_path, exist_ok=True)
-        os.makedirs(self.results_path, exist_ok=True)
-        self.logger = colorlogger(self.results_path)
-
-        try:
-            from tensorboardX import SummaryWriter
-            self.tb_writer = SummaryWriter(logdir=self.results_path)
-        except ImportError:
-            self.tb_writer = None
+        self.tb_writer = None
+        if self.rank == 0:
+            os.makedirs(self.checkpoints_path, exist_ok=True)
+            os.makedirs(self.results_path, exist_ok=True)
+            self.logger = colorlogger(self.results_path)
+            try:
+                from tensorboardX import SummaryWriter
+                self.tb_writer = SummaryWriter(logdir=self.results_path)
+            except ImportError:
+                pass
+        else:
+            # warnings only: rank 0 logs the run
+            self.logger = logging.getLogger(
+                f"monoport_tpu_torch.trainer.rank{self.rank}")
+        if self.mesh is not None:
+            self.logger.info("data parallel over a %s mesh of %d ranks",
+                             self.mesh.shape, world_size)
+            if not self.mesh.active:
+                self.logger.warning(
+                    "rank %d is outside the %s mesh: it runs no step",
+                    self.rank, self.mesh.shape)
 
         # the reference's MultiStepLR milestones are epochs
         milestones = [int(m) * steps_per_epoch for m in cfg.schedule]
@@ -71,7 +112,7 @@ class Trainer:
                                  cfg.weight_decay, cfg.momentum,
                                  tuple(milestones), cfg.gamma,
                                  grad_clip=cfg.get("grad_clip", 0.0))
-        self.step_fn = make_train_step(self.net)
+        self.step_fn = make_train_step(self.net, self.mesh)
         self.state: Optional[TrainState] = None
 
     # -- state --------------------------------------------------------------
@@ -81,7 +122,8 @@ class Trainer:
         CPU generator seeded 0."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.state = create_train_state(self.net, self.tx, generator)
+        self.state = create_train_state(self.net, self.tx, generator,
+                                        self.mesh)
         return self.state
 
     def load_params(self, variables) -> None:
@@ -97,6 +139,9 @@ class Trainer:
 
     def update_ckpt(self, filename: str, epoch: int, iteration: int,
                     **kwargs) -> None:
+        """Rank 0 saves; the other ranks hold the same state."""
+        if self.rank != 0:
+            return
         path = os.path.abspath(os.path.join(self.checkpoints_path, filename))
         names = self._names()
         ckpt = {
@@ -150,6 +195,8 @@ class Trainer:
     # -- loop ---------------------------------------------------------------
     def train_epoch(self, batches: Iterable[dict], epoch: int,
                     eval_batch: Optional[dict] = None) -> float:
+        if self.mesh is not None and not self.mesh.active:
+            return float("nan")
         losses = []
         for batch in batches:
             if self.state is None:

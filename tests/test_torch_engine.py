@@ -128,9 +128,9 @@ def test_engine_without_device_needs_cuda(setup, monkeypatch):
 def test_other_paths_raise_naming_their_roadmap_item():
     """The backbone's other norms and downsamplers build (held to the JAX
     package in tests/test_torch_backbones.py), and so do the soft-onehot z
-    features (tests/test_torch_training.py); what the port still lacks,
-    data parallel training over several cards, raises and names its
-    ROADMAP item."""
+    features (tests/test_torch_training.py); data parallel training takes
+    a ``parallel.mesh.Mesh`` (tests/test_torch_mesh.py), and anything else
+    as its mesh raises ``TypeError``."""
     from monoport_tpu_torch.models.backbones.hourglass import (BatchNorm,
                                                                HGFilter)
     from monoport_tpu_torch.models.normalizers.depth_normalizer import (
@@ -148,7 +148,7 @@ def test_other_paths_raise_naming_their_roadmap_item():
     z = DepthNormalizer(soft_onehot=True, soft_dim=8)(torch.zeros(1, 3, 1))
     assert z.shape == (1, 3, 8)
     from monoport_tpu_torch.parallel.train_step import make_train_step
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 14"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         make_train_step(net, mesh="data")
 
 

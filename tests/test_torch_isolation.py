@@ -1,7 +1,7 @@
 """PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
 perception, render, host pipeline, the alternative backbones, the
-checkpoint converter, training, the perception nets' training and the
-utilities included) and chip_smoke.py import without pulling in jax or
+checkpoint converter, training, the perception nets' training, the mesh
+and the utilities, profiling among them, included) and chip_smoke.py import without pulling in jax or
 monoport_tpu, nor matplotlib (checked in a fresh interpreter, since this
 test process has both loaded)."""
 
@@ -31,6 +31,8 @@ assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
         "monoport_tpu_torch.models.backbones.yolov4",
         "monoport_tpu_torch.training.trainer",
         "monoport_tpu_torch.parallel.train_step",
+        "monoport_tpu_torch.parallel.mesh",
+        "monoport_tpu_torch.utils.profiling",
         "monoport_tpu_torch.training.datasets.capsule",
         "monoport_tpu_torch.training.datasets.superquadric",
         "monoport_tpu_torch.utils.params_io",

@@ -1,7 +1,7 @@
 """PyTorch port, the training loop and its files: the Trainer's checkpoint
 round trip and resume (mirroring ``tests/test_training.py``), its eval
-hook, ``train_epoch`` on the synthetic blobs and its refusal of several
-cards; the npz interop with the JAX package in both directions; the
+hook, ``train_epoch`` on the synthetic blobs and its mesh in a world of
+two ranks; the npz interop with the JAX package in both directions; the
 training apps (``apps.train`` for netG and netC, both capsule apps) on
 the CPU at 64^2, each ending with a saved file that loads."""
 
@@ -123,13 +123,42 @@ def test_trainer_eval_hook_and_train_epoch(tmp_path):
     assert net.training
 
 
-def test_trainer_refuses_several_cards(tmp_path, monkeypatch):
-    """Data parallel is ROADMAP item 14: with use_mesh and two visible
-    cards the Trainer raises instead of training on one (the count is
-    faked; nothing touches a card)."""
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(ValueError, match="item 14"):
-        Trainer(_net(), _cfg(tmp_path), device="cuda")
+def test_trainer_in_a_world_of_two_builds_jax_mesh(tmp_path, monkeypatch):
+    """In a world of two ranks (torch's fake backend: real process groups,
+    no-op collectives) the Trainer builds the JAX Trainer's mesh over two
+    devices; rank 0 alone writes files. Where the batch takes no split
+    and the points take one, the mesh is (1, 2)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from monoport_tpu.config import get_cfg_defaults as jax_defaults
+    from monoport_tpu.training.trainer import Trainer as JaxTrainer
+
+    devices = jax.devices()
+    monkeypatch.setattr(jax, "devices", lambda: devices[:2])
+    for bs in (1, 2):
+        jcfg = jax_defaults()
+        jcfg.checkpoints_path = str(tmp_path / "jax")
+        jcfg.results_path = str(tmp_path / "jax")
+        jcfg.batch_size = bs
+        want = JaxTrainer(JaxNet(jcfg.netG), jcfg).mesh.shape
+        for rank in (0, 1):
+            dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                    world_size=2)
+            try:
+                cfg = _cfg(tmp_path / f"r{rank}", batch_size=bs)
+                tr = Trainer(_net(), cfg, device="cpu")
+                assert tr.mesh.shape == dict(want), (bs, rank)
+                assert tr.mesh.coords == ((rank, 0) if bs == 2
+                                          else (0, rank))
+                assert tr.tb_writer is None or rank == 0
+                assert os.path.isdir(tr.checkpoints_path) == (rank == 0)
+                tr.init_state()
+                tr.update_ckpt("c", 0, 0)
+                assert os.path.exists(os.path.join(
+                    tr.checkpoints_path, "c")) == (rank == 0)
+            finally:
+                dist.destroy_process_group()
 
 
 # -- npz interop with the JAX package -----------------------------------------

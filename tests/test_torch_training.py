@@ -341,10 +341,29 @@ def test_scan_train_step_equals_loop():
         torch.testing.assert_close(v, results[1][1][k], rtol=0, atol=0)
 
 
-def test_mesh_is_refused():
-    net = _port_net("B")
+def test_world_of_one_mesh_step_is_the_plain_step():
+    """``make_train_step`` and ``make_scan_train_step`` under a mesh of a
+    world of one (no process group) equal the steps without a mesh, bit
+    for bit; ``create_train_state`` under it changes nothing."""
+    from monoport_tpu_torch.parallel.mesh import make_mesh
+
+    batches = [_tensors(_batch("B", seed, size=32, n=64))
+               for seed in range(2)]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    results = []
+    for mesh in (None, make_mesh()):
+        assert mesh is None or mesh.shape == {"data": 1, "points": 1}
+        net = _port_net("B")
+        tx = ts.make_optimizer("sgd", 0.5, momentum=0.9, grad_clip=1.0)
+        state = ts.create_train_state(net, tx, mesh=mesh)
+        state, loss = ts.make_train_step(net, mesh)(state, batches[0])
+        state, losses = ts.make_scan_train_step(net, mesh)(state, stacked)
+        results.append((torch.cat([loss[None], losses]), net.state_dict()))
+    torch.testing.assert_close(results[0][0], results[1][0], rtol=0, atol=0)
+    for k, v in results[0][1].items():
+        torch.testing.assert_close(v, results[1][1][k], rtol=0, atol=0)
     for make in (ts.make_train_step, ts.make_scan_train_step):
-        with pytest.raises(ValueError, match="item 14"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             make(net, mesh=object())
 
 
