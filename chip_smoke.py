@@ -91,8 +91,10 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     device ms beside the committed HGFilter's, and an f32 and the bf16
     frame held to the f32 frame through the plain kernels on the card.
     The kernel phase's rows after those of the frames run kernels 1-3 on a
-    seeded 271-wide head, its last rows kernel 2 on the seeded
-    soft-onehot head (input 320) at phase 14's shapes;
+    seeded 271-wide head, then kernel 2 on the seeded soft-onehot head
+    (input 320) at phase 14's shapes, and last kernels 2 and 3 at phase
+    17's rotated 129 profile and kernel 2 on a seeded copy of
+    ``demo_synthetic``'s 129-wide head at its hierarchy's levels;
 13. train (f32, TF32 off): one full-width train step of the committed
     netG (Adam on the capsule app's cosine schedule) and netC (netG's
     feature prior, the global-norm clip, Adam) on the batches of
@@ -101,7 +103,9 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     ``TRAIN_LIMITS``; ``apps.train_capsule_netG`` for ``TRAIN_STEPS``
     steps from the committed netG at 512^2 (steps a second from CUDA
     events, the median of the chunks; peak memory; the chunks' losses,
-    finite; the held-out IOU; none of our kernels launched), one profiled
+    finite; the held-out IOU; none of our kernels launched), that
+    checkpoint beside the committed netG (the app's held-out point IOU and
+    ``apps.eval_netg``'s silhouette IOUs, bf16), one profiled
     step (device idle share, host syncs of the step and of the batch
     draw: none), the saved npz with the committed netC through
     ``ReconEngine`` (bf16 frontal frames: exactly 4 ray-MLP launches each,
@@ -158,6 +162,33 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     tolerance), the ranks' parameters and running stats equal. The times
     (frame ms a rank, step ms) on a line of their own with the card: two
     gloo ranks sharing one card are a correctness run, no scaling figure.
+
+17. quality (last; ``torch.backends.cudnn.benchmark`` pinned to True for
+    the whole phase and printed): reconstruction quality against the
+    ground truth through ``monoport_tpu_torch/evaluate.py`` on the
+    committed nets and the JAX package's held-out bodies
+    (``data/eval_golden.npz``), 512^2 renders, nothing cut. (a) The bench
+    profile on body 31337: ``bench_real``'s four quality keys in bf16
+    through the kernels (launches counted: the frame's 4 ray-MLP, the
+    dense oracle's 5 per-point) and in f32 through the plain versions on
+    the card; the f32 keys held to the JAX f32 golden (``QUALITY_LIMITS``:
+    IOU 0.005, PSNR 0.2 dB, the depth median 2e-3 voxels, the silhouette
+    within ``F32_LIMITS``'s disagreement), the bf16 keys to the f32 ones
+    (IOU 0.01, PSNR 0.5 dB, depth 0.6 voxels); eval_netg's IOU and
+    eval_netc's PSNR on seeds 31337, 4242 and 777 in bf16, held to the
+    JAX f32 golden at the bf16 bounds. (b) Cross-family (seed 31337): at
+    129 in f32 through the plain versions each family's IOU and PSNR
+    within the f32 bounds of the golden, its silhouette within
+    ``F32_LIMITS``; at 257 in bf16 the readings printed beside the JAX
+    test's gates (set at 129: not enforced). (c) Rotated anchored: the
+    four orbit poses in bf16 (launches held to each pose's anchor plan;
+    no stream sync in a frame of each mode) and in f32 through the plain
+    versions, each IOU key within 0.005 and each MAD key within 1e-3 of
+    the golden, plans and dropped rays equal.
+    (d) ``apps.demo_synthetic`` for 300 steps: finite losses, a non-empty
+    mesh, the training scene's IOU at least the held-out one's, steps a
+    second (the host's numpy scene draws included), the per-point MLP
+    once a hierarchy level of its two frames (f32).
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -411,6 +442,30 @@ def wide_head_net():
     return types.SimpleNamespace(surface_classifier=head.cuda().eval())
 
 
+def demo_head_net():
+    """``apps/demo_synthetic``'s 129-256-128-1 occupancy head with
+    numpy-seeded weights (a normal scaled by the fan-in's root, zero
+    biases) on the card, as a net the kernel phase packs."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch.apps.demo_synthetic import DEMO_HEAD
+    from monoport_tpu_torch.models.heads.surface_classifier import (
+        SurfaceClassifier)
+
+    head = SurfaceClassifier(DEMO_HEAD, "sigmoid")
+    rng = np.random.RandomState(129)
+    with torch.no_grad():
+        for lin in head.layers():
+            fan_in = lin.weight.shape[1]
+            lin.weight.copy_(torch.from_numpy(rng.randn(
+                *lin.weight.shape).astype(np.float32) / np.sqrt(fan_in)))
+            lin.bias.zero_()
+    return types.SimpleNamespace(surface_classifier=head.cuda().eval())
+
+
 def soft_rows(rng, rays: int):
     """Inputs of the soft-onehot head [1, rays, 320]: 256 normal feature
     channels and the soft-onehot bins of a depth uniform in [-0.4, 0.4]
@@ -485,6 +540,18 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                ("fused_mlp", "march_c320", soft, 33 ** 3, 1, 1),
                ("fused_mlp", "refine257_points_c320", soft, 192 * 192 * 6,
                 1, 1)]
+    # phase 17 (quality): eval_rotated_anchored's 129 profile (its refines
+    # of 768 and 5,888 compacted rays, per point or with 3 anchors) and
+    # demo_synthetic's 129-256-128-1 head (numpy-seeded here) at its
+    # hierarchy's levels
+    shapes += [("fused_mlp", "rot129_refine33_points", netG, 768 * 6, 1, 1),
+               ("fused_mlp", "rot129_refine129_points", netG, 5888 * 6, 1,
+                1),
+               ("fused_anchor_mlp", "rot129_refine33", netG, 768, 6, 3),
+               ("fused_anchor_mlp", "rot129_refine129", netG, 5888, 6, 3)]
+    demo = demo_head_net()
+    shapes += [("fused_mlp", f"demo_level_{n}", demo, n, 1, 1)
+               for n in (17 ** 3, 8192, 32768)]
     rows = []
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         # a head's packing for the kernels that take it (a soft-onehot head
@@ -2115,7 +2182,8 @@ def capsule_app_phase(netC, counters: dict, card: str) -> dict:
     import torch
 
     from monoport_tpu_torch import frame_check, weights
-    from monoport_tpu_torch.apps import train_capsule_netC, train_capsule_netG
+    from monoport_tpu_torch.apps import (eval_netg, train_capsule_netC,
+                                         train_capsule_netG)
     from monoport_tpu_torch.config import get_cfg_defaults
     from monoport_tpu_torch.engine import ReconEngine
     from monoport_tpu_torch.parallel import train_step as ts
@@ -2146,6 +2214,21 @@ def capsule_app_phase(netC, counters: dict, card: str) -> dict:
             fail(f"netG training gave non-finite losses {res}")
         if any(during.values()):
             fail(f"a train step launched our kernels: {during}")
+
+        # the fine-tuned checkpoint beside the committed one: the point
+        # IOU the app reports, and eval_netg's silhouette IOUs (bf16)
+        committed = os.path.join(weights.DATA, "netg_capsule.npz")
+        quality = {}
+        for name, path in (("trained", out), ("committed", committed)):
+            net = weights.build_net(cfg.netG, weights.load_params(path)[0],
+                                    "cuda")
+            quality[name] = {
+                "point_iou": train_capsule_netG.heldout_point_iou(
+                    net, 512, 0, "cuda"),
+                "silhouette_iou": eval_netg.eval_ckpt(
+                    path, eval_netg.parse_args([]))}
+            del net
+        emit({"phase": "trained_netG_quality", **quality, "card": card})
 
         trained = weights.build_net(cfg.netG, weights.load_params(out)[0],
                                     "cuda")
@@ -2372,6 +2455,305 @@ def train_perception_phase(counters: dict, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 17's bounds: the f32 readings through the plain versions against
+# the JAX package's f32 readings, the bf16 readings against the f32 ones
+QUALITY_LIMITS = {"iou_f32": 0.005, "psnr_f32_db": 0.2, "depth_f32": 2e-3,
+                  "iou_bf16": 0.01, "psnr_bf16_db": 0.5, "depth_bf16": 0.6,
+                  "rotated_iou": 0.005, "rotated_mad": 1e-3}
+DEMO_STEPS = 300
+# tests/test_trained_pipeline.py's cross-family gates (set at 129)
+CROSSFAM_GATES = {"sq_flat": {"iou": 0.90, "psnr": 32.2},
+                  "sq": {"iou": 0.89, "psnr": 29.9},
+                  "ellipsoid": {"iou": 0.87}}
+
+
+def _within(got: float, want: float, tol: float) -> bool:
+    return abs(got - want) <= tol
+
+
+def _disagree(valid, want) -> float:
+    got = valid.cpu().numpy()
+    return float((got != want).sum() / max((got | want).sum(), 1))
+
+
+def quality_bench(netG, netC, counters: dict, card: str, golden: dict,
+                  image, caps) -> dict:
+    """Phase 17a: ``bench_real``'s keys (bf16 kernels, f32 plain) and the
+    held-out seeds. -> launches by kernel."""
+    import torch
+
+    from monoport_tpu_torch import evaluate, frame_check
+    from monoport_tpu_torch.training.datasets.capsule import render_front
+
+    lim = QUALITY_LIMITS
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    keys16, _ = evaluate.bench_quality(netG, netC, image, caps,
+                                       torch.bfloat16, "cuda")
+    s16 = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update({"fused_ray_mlp": 4, "fused_mlp": 5})
+    t0 = time.perf_counter()
+    with plain_kernels():
+        keys32, out32 = evaluate.bench_quality(netG, netC, image, caps,
+                                               torch.float32, "cuda")
+    s32 = time.perf_counter() - t0
+    jax32 = {k: float(golden[f"bench/{k}"]) for k in evaluate.BENCH_KEYS}
+    disagree = _disagree(out32["valid"], golden["bench/valid"])
+    emit({"phase": "quality_bench", "seed": evaluate.BENCH_SEED,
+          "bf16": keys16, "f32_plain": keys32, "jax_f32": jax32,
+          "f32_valid_disagree": disagree, "launches": launches,
+          "seconds_bf16": s16, "seconds_f32_plain": s32,
+          "limits": lim, "card": card})
+    if launches != want:
+        fail(f"the bench quality run launched {launches}, expected {want}")
+    checks = [(k, keys32[k], jax32[k], lim["iou_f32"])
+              for k in ("real_model_vs_gt_iou", "real_ray_vs_dense_iou")]
+    checks += [("real_tex_psnr_db", keys32["real_tex_psnr_db"],
+                jax32["real_tex_psnr_db"], lim["psnr_f32_db"]),
+               ("real_depth_err_med_voxels",
+                keys32["real_depth_err_med_voxels"],
+                jax32["real_depth_err_med_voxels"], lim["depth_f32"])]
+    for k, got, ref, tol in checks:
+        if not _within(got, ref, tol):
+            fail(f"f32 {k} {got} is more than {tol} from the JAX f32 "
+                 f"golden's {ref}")
+    if disagree >= frame_check.F32_LIMITS.valid_disagree_max:
+        fail(f"the f32 bench frame's silhouette disagrees with the JAX "
+             f"golden's on {disagree:.4%} of its union")
+    for k, tol in (("real_model_vs_gt_iou", lim["iou_bf16"]),
+                   ("real_ray_vs_dense_iou", lim["iou_bf16"]),
+                   ("real_tex_psnr_db", lim["psnr_bf16_db"]),
+                   ("real_depth_err_med_voxels", lim["depth_bf16"])):
+        if not _within(keys16[k], keys32[k], tol):
+            fail(f"bf16 {k} {keys16[k]} is more than {tol} from the card's "
+                 f"f32 {keys32[k]}")
+
+    # eval_netg / eval_netc on the held-out seeds, bf16
+    engine = evaluate.bench_engine(netG, netC, torch.bfloat16, "cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    seeds = {}
+    for seed in evaluate.HELD_OUT_SEEDS:
+        body = evaluate.capsule_body(seed, "cuda", golden)
+        r, _ = evaluate.frame_readings(engine, render_front(body, 512)[0],
+                                       evaluate.capsule_occ(body))
+        seeds[seed] = {"iou": r["iou"], "psnr": r["psnr"],
+                       "jax_f32_iou": float(golden[f"netg/{seed}"]),
+                       "jax_f32_psnr": float(golden[f"netc/{seed}"])}
+    seed_launches = {name: fn.launches for name, fn in counters.items()}
+    emit({"phase": "quality_seeds", "dtype": "bf16",
+          "seeds": {str(k): v for k, v in seeds.items()},
+          "mean_iou": statistics.mean(v["iou"] for v in seeds.values()),
+          "mean_psnr": statistics.mean(v["psnr"] for v in seeds.values()),
+          "launches": seed_launches, "card": card})
+    if seed_launches["fused_ray_mlp"] != 4 * len(seeds):
+        fail(f"the seeds' frames launched {seed_launches}")
+    for seed, v in seeds.items():
+        if not (_within(v["iou"], v["jax_f32_iou"], lim["iou_bf16"])
+                and _within(v["psnr"], v["jax_f32_psnr"],
+                            lim["psnr_bf16_db"])):
+            fail(f"seed {seed}: bf16 readings {v} off the JAX f32 golden")
+    for name, n in seed_launches.items():
+        launches[name] += n
+    return launches
+
+
+def quality_crossfam(netG, netC, counters: dict, card: str,
+                     golden: dict) -> dict:
+    """Phase 17b: the cross-family families, f32 plain at 129 against the
+    golden, bf16 at 257 beside the gates. -> launches by kernel."""
+    import torch
+
+    from monoport_tpu_torch import evaluate, frame_check
+    from monoport_tpu_torch.apps import eval_crossfam
+
+    lim = QUALITY_LIMITS
+    seeds = [evaluate.BENCH_SEED]
+    t0 = time.perf_counter()
+    with plain_kernels():
+        eng32 = evaluate.reduced_engine(netG, netC, torch.float32, "cuda")
+        fams32 = eval_crossfam.family_readings(eng32, seeds, "cuda", golden)
+    s32 = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    eng16 = evaluate.bench_engine(netG, netC, torch.bfloat16, "cuda")
+    fams16 = eval_crossfam.family_readings(eng16, seeds, "cuda", golden)
+    torch.cuda.synchronize()
+    s16 = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    rows = {}
+    for fam, ((r32, out32),) in fams32.items():
+        ref = {"iou": float(golden[f"crossfam/{fam}/iou"]),
+               "psnr": (float(golden[f"crossfam/{fam}/psnr"])
+                        if f"crossfam/{fam}/psnr" in golden else None)}
+        rows[fam] = {"f32_plain_129": {k: r32[k] for k in ("iou", "psnr")},
+                     "jax_f32_129": ref, "f32_valid_disagree": _disagree(
+                         out32["valid"], golden[f"crossfam/{fam}/valid"]),
+                     "bf16_257": {k: fams16[fam][0][0][k]
+                                  for k in ("iou", "psnr")},
+                     "gates_at_129": CROSSFAM_GATES.get(fam)}
+    emit({"phase": "quality_crossfam", "seed": evaluate.BENCH_SEED,
+          "families": rows, "launches_bf16_257": launches,
+          "seconds_f32_plain": s32, "seconds_bf16": s16, "card": card})
+    if launches["fused_ray_mlp"] != 4 * 3 + 3:
+        fail(f"the bf16 cross-family frames launched {launches}")
+    for fam, row in rows.items():
+        got, ref = row["f32_plain_129"], row["jax_f32_129"]
+        if not _within(got["iou"], ref["iou"], lim["iou_f32"]):
+            fail(f"{fam}: f32 IOU {got['iou']} off the JAX golden's "
+                 f"{ref['iou']}")
+        if ref["psnr"] is not None and not _within(
+                got["psnr"], ref["psnr"], lim["psnr_f32_db"]):
+            fail(f"{fam}: f32 PSNR {got['psnr']} off the JAX golden's "
+                 f"{ref['psnr']}")
+        if row["f32_valid_disagree"] >= \
+                frame_check.F32_LIMITS.valid_disagree_max:
+            fail(f"{fam}: the f32 silhouette disagrees with the JAX "
+                 f"golden's: {row['f32_valid_disagree']}")
+    return launches
+
+
+def quality_rotated(netG, netC, counters: dict, card: str, golden: dict,
+                    image, caps) -> dict:
+    """Phase 17c: eval_rotated_anchored's keys, bf16 (launches held to the
+    plans) and f32 plain against the golden. -> launches by kernel."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import evaluate
+
+    lim = QUALITY_LIMITS
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out16, plans = evaluate.rotated_anchored(netG, netC, image, caps,
+                                             torch.bfloat16, "cuda")
+    s16 = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    for plan in plans.values():
+        for name, n in rotated_expect(plan).items():
+            want[name] += n
+    t0 = time.perf_counter()
+    with plain_kernels():
+        out32, plans32 = evaluate.rotated_anchored(netG, netC, image, caps,
+                                                   torch.float32, "cuda")
+    s32 = time.perf_counter() - t0
+    # no stream sync inside a frame of the profile (each mode, the first
+    # pose: its 'auto' plan anchors one level)
+    calib = evaluate.pose_calib(*evaluate.POSES[0])
+    img = image[None]
+    syncs = {}
+    for mode in evaluate.ROTATED_MODES:
+        eng = evaluate.rotated_engine(netG, netC, mode, torch.bfloat16,
+                                      "cuda")
+        eng.frame(img, img, calib)
+        torch.cuda.synchronize()
+        syncs[str(mode)] = find_syncs(lambda: eng.frame(img, img, calib))
+    diffs, bad = {}, []
+    for key, got in out32.items():
+        ref = golden[f"rotated/{key}"]
+        if "_plan_" in key:
+            ok = got == str(tuple(int(k) or None for k in ref))
+        elif "_dropped_" in key:
+            ok = got == ref.tolist()
+        elif "_p95_" in key:
+            continue
+        else:
+            diffs[key] = got - float(ref)
+            tol = lim["rotated_mad"] if "_mad_" in key else lim["rotated_iou"]
+            ok = abs(diffs[key]) <= tol
+        if not ok:
+            bad.append((key, got, ref.tolist()))
+    emit({"phase": "quality_rotated", "bf16": {
+        k: v for k, v in out16.items() if "_iou_" in k or "_plan_" in k},
+          "bf16_all": out16, "f32_plain_minus_jax": diffs,
+          "plans": {f"{t}/{m}": list(p) for (t, m), p in plans.items()},
+          "launches": launches, "expected": want, "seconds_bf16": s16,
+          "seconds_f32_plain": s32, "host_syncs_per_frame": {
+              k: len(v) for k, v in syncs.items()}, "card": card})
+    if launches != want:
+        fail(f"rotated quality frames launched {launches}, the plans "
+             f"imply {want}")
+    if any(syncs.values()):
+        fail(f"a rotated 129 frame synchronised the stream: {syncs}")
+    if {k: tuple(v) for k, v in plans.items()} != \
+            {k: tuple(v) for k, v in plans32.items()}:
+        fail(f"bf16 and f32 plans differ: {plans} {plans32}")
+    if bad:
+        fail(f"rotated f32 readings off the JAX golden: {bad}")
+    return launches
+
+
+def quality_demo(counters: dict, card: str) -> dict:
+    """Phase 17d: ``apps.demo_synthetic`` for ``DEMO_STEPS`` steps. ->
+    launches by kernel."""
+    import math
+    import tempfile
+
+    from monoport_tpu_torch.apps import demo_synthetic
+
+    for fn in counters.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = demo_synthetic.main(["--steps", str(DEMO_STEPS), "--out", tmp])
+        seconds = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    emit({"phase": "quality_demo", "steps": DEMO_STEPS, **res,
+          "files": files, "seconds": seconds, "launches": launches,
+          "jax_reference_iou": 0.36, "card": card})
+    want = dict.fromkeys(counters, 0)
+    want["fused_mlp"] = 6
+    if launches != want:
+        fail(f"demo_synthetic launched {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        fail(f"demo_synthetic gave non-finite losses {res['losses']}")
+    if not (res["verts"] > 0 and res["faces"] > 0):
+        fail(f"demo_synthetic's mesh is empty: {res}")
+    if res["train_iou"] < res["iou"]:
+        fail(f"demo_synthetic: the training scene's IOU {res['train_iou']}"
+             f" is below the held-out scene's {res['iou']}")
+    if files != ["mesh.obj", "metrics.json", "recon_norm.png"]:
+        fail(f"demo_synthetic wrote {files}")
+    return launches
+
+
+def quality_phase(netG, netC, counters: dict, card: str) -> dict:
+    """Phase 17: quality against the ground truth (module docstring). ->
+    launches by kernel."""
+    import torch
+
+    from monoport_tpu_torch import evaluate
+    from monoport_tpu_torch.training.datasets.capsule import render_front
+
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    golden = evaluate.load_golden()
+    caps = evaluate.capsule_body(evaluate.BENCH_SEED, "cuda", golden)
+    image = render_front(caps, 512)[0]
+    totals: dict = {}
+    for launches in (
+            quality_bench(netG, netC, counters, card, golden, image, caps),
+            quality_crossfam(netG, netC, counters, card, golden),
+            quality_rotated(netG, netC, counters, card, golden, image, caps),
+            quality_demo(counters, card)):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+    emit({"phase": "quality", "seconds": time.perf_counter() - t0,
+          "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "launches": totals, "card": card})
+    if not torch.backends.cudnn.benchmark:
+        fail("the quality phase's cudnn.benchmark pin was changed")
+    torch.cuda.empty_cache()
+    return totals
+
+
 KERNELS = [
     # name, source, the TPU kernel it replaces, its shapes on the main path
     ("fused_ray_mlp", "fused_ray_mlp.cu",
@@ -2476,6 +2858,8 @@ def main() -> int:
     for name, n in sharded_phase(netG, netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     train_perception_phase(counters, card)
+    for name, n in quality_phase(netG, netC, counters, card).items():
+        launches[name] = launches.get(name, 0) + n
 
     emit(kernels_line(rows, launches))
     print(card, flush=True)

@@ -34,9 +34,21 @@ class SyntheticBlobDataset:
         return centers.astype(np.float32), radii.astype(np.float32)
 
     def occupancy(self, pts: np.ndarray, centers, radii) -> np.ndarray:
-        d = np.linalg.norm(
-            (pts[:, None, :] - centers[None]) / radii[None], axis=-1)
-        return (d.min(axis=1) < 1.0).astype(np.float32)
+        """1 inside a blob, else 0: the min over blobs of the scaled
+        distance ``np.linalg.norm((pts - c) / r, axis=-1)`` < 1, computed
+        on contiguous columns a blob at a time in the norm's own order,
+        (x^2 + y^2) + z^2: bit for bit the same numbers, without numpy's
+        slow reduce over a length-3 axis."""
+        cols = [np.ascontiguousarray(pts[:, i]) for i in range(3)]
+        d_min = None
+        for c, r in zip(centers, radii):
+            sq = None
+            for col, ci, ri in zip(cols, c, r):
+                q = (col - ci) / ri
+                sq = q * q if sq is None else sq + q * q
+            d = np.sqrt(sq)
+            d_min = d if d_min is None else np.minimum(d_min, d)
+        return (d_min < 1.0).astype(np.float32)
 
     def __getitem__(self, index: int) -> dict:
         rng = np.random.RandomState(self.seed + index)

@@ -1,7 +1,8 @@
 """PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
 perception, render, host pipeline, the alternative backbones, the
-checkpoint converter, training, the perception nets' training, the mesh
-and the utilities, profiling among them, included) and chip_smoke.py import without pulling in jax or
+checkpoint converter, training, the perception nets' training, the mesh,
+the utilities, profiling among them, and the evaluation layer with its
+apps included) and chip_smoke.py import without pulling in jax or
 monoport_tpu, nor matplotlib (checked in a fresh interpreter, since this
 test process has both loaded)."""
 
@@ -45,7 +46,13 @@ assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
         "monoport_tpu_torch.apps.train_detection",
         "monoport_tpu_torch.utils.compile_cache",
         "monoport_tpu_torch.utils.plot",
-        "monoport_tpu_torch.utils.objloader_native"} <= set(mods), mods
+        "monoport_tpu_torch.utils.objloader_native",
+        "monoport_tpu_torch.evaluate",
+        "monoport_tpu_torch.apps.eval_netg",
+        "monoport_tpu_torch.apps.eval_netc",
+        "monoport_tpu_torch.apps.eval_crossfam",
+        "monoport_tpu_torch.apps.eval_rotated_anchored",
+        "monoport_tpu_torch.apps.demo_synthetic"} <= set(mods), mods
 assert not bad, bad
 # utils.plot imports matplotlib inside its function only
 assert "matplotlib" not in sys.modules
