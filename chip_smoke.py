@@ -190,6 +190,33 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     second (the host's numpy scene draws included), the per-point MLP
     once a hierarchy level of its two frames (f32).
 
+18. wide_head (after phase 14): a netG whose head the in-place bf16
+    kernel cannot hold (``tests/torch_reference_state.wide_netg``: the
+    committed HGFilter under a numpy-seeded ``WIDE_NETG_HEAD``
+    257-2048-1024-768-128-1 head) with the committed netC: the bf16
+    kernels in their scratch mode, the f32 route with its activations in
+    device memory. Frontal, rotated and dense frames, bf16 timed with the
+    counts zeroed and read around them (phases 4-6's launches), no stream
+    sync, each frame in bf16 and f32 held to the same frame through the
+    plain kernels on the card at the view's ``frame_check`` limits (f32:
+    ``recon_counts`` / ``compact_dropped`` equal); then the committed
+    netG's head forced into both scratch modes, bit-equal to in place. The
+    kernel phase's rows after phase 17's run kernels 1-4 at this head at
+    every shape its frames and the gather A/B launch (each row names its
+    mode), and the gather A/B runs it too. Its outputs sit on the
+    sigmoid's tails, so the rows after those run kernels 1-4 on a head of
+    the same widths whose seeded weights keep at least half the outputs
+    off the tails (``unsaturated_share``), at the bf16 tolerance. Every
+    bf16 row of the published heads on the frames' path is also timed
+    forced into the scratch mode and then in place again
+    (``scratch_ms``, ``in_place_ms_after``; outputs bit-equal).
+19. train_ppl (after phase 13): ``apps.train_ppl --recipe r5`` cut to 2
+    subjects x 4 rotations, 3 + 12 epochs with phase C resumed after its
+    sixth, in a process of its own session with a time limit (a hung
+    loader worker fails the phase): losses finite and falling, the resume
+    exact, none of our kernels launched in a step, the trained nets' bf16
+    frame exactly 4 ray-MLP launches.
+
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
 """
@@ -226,8 +253,6 @@ ROUTES = {("fused_ray_mlp", "bf16"): "sm90_wgmma",
           ("fused_mlp", "bf16"): "sm90_wgmma",
           ("fused_anchor_mlp", "bf16"): "sm90_mix_wgmma",
           ("fused_gather_mlp", "bf16"): "sm90_mix_wgmma"}
-# rows a block of the f32 layer kernel (F32Cfg::BM, csrc/mlp_tiles.cuh)
-F32_BLOCK_ROWS = 32
 # frames the serve phase streams through the demo's pipeline
 SERVE_FRAMES = 8
 
@@ -442,28 +467,48 @@ def wide_head_net():
     return types.SimpleNamespace(surface_classifier=head.cuda().eval())
 
 
-def demo_head_net():
-    """``apps/demo_synthetic``'s 129-256-128-1 occupancy head with
-    numpy-seeded weights (a normal scaled by the fan-in's root, zero
-    biases) on the card, as a net the kernel phase packs."""
+def seeded_head_net(chans, seed: int, bias_sd: float = 0.0):
+    """A sigmoid occupancy head of widths ``chans`` with numpy-seeded
+    weights (a normal scaled by the fan-in's root; biases a normal times
+    ``bias_sd``, zero at 0) on the card, as a net the kernel phase packs."""
     import types
 
     import numpy as np
     import torch
 
-    from monoport_tpu_torch.apps.demo_synthetic import DEMO_HEAD
     from monoport_tpu_torch.models.heads.surface_classifier import (
         SurfaceClassifier)
 
-    head = SurfaceClassifier(DEMO_HEAD, "sigmoid")
-    rng = np.random.RandomState(129)
+    head = SurfaceClassifier(chans, "sigmoid")
+    rng = np.random.RandomState(seed)
     with torch.no_grad():
         for lin in head.layers():
             fan_in = lin.weight.shape[1]
             lin.weight.copy_(torch.from_numpy(rng.randn(
                 *lin.weight.shape).astype(np.float32) / np.sqrt(fan_in)))
-            lin.bias.zero_()
+            if bias_sd:
+                lin.bias.copy_(torch.from_numpy(rng.randn(
+                    *lin.bias.shape).astype(np.float32) * bias_sd))
+            else:
+                lin.bias.zero_()
     return types.SimpleNamespace(surface_classifier=head.cuda().eval())
+
+
+@contextlib.contextmanager
+def forced_scratch():
+    """Every head into the scratch modes, as a wide head runs: the bf16
+    wgmma kernel's device-memory h and the f32 kernel's device-memory
+    activations."""
+    from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+    from monoport_tpu_torch.ops.cuda import wgmma
+
+    real = (wgmma.needs_scratch, tray.RayMlpPacked.f32_scratch)
+    try:
+        wgmma.needs_scratch = lambda widths: True
+        tray.RayMlpPacked.f32_scratch = property(lambda self: True)
+        yield
+    finally:
+        wgmma.needs_scratch, tray.RayMlpPacked.f32_scratch = real
 
 
 def soft_rows(rng, rays: int):
@@ -549,9 +594,46 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                 1),
                ("fused_anchor_mlp", "rot129_refine33", netG, 768, 6, 3),
                ("fused_anchor_mlp", "rot129_refine129", netG, 5888, 6, 3)]
-    demo = demo_head_net()
+    from monoport_tpu_torch.apps.demo_synthetic import DEMO_HEAD
+    demo = seeded_head_net(DEMO_HEAD, 129)
     shapes += [("fused_mlp", f"demo_level_{n}", demo, n, 1, 1)
                for n in (17 ** 3, 8192, 32768)]
+    # the wide netG (phase wide_head: WIDE_NETG_HEAD, which the in-place
+    # bf16 kernel cannot hold; its scratch mode and the f32 route's
+    # activation scratch) at every shape its frames launch: the frontal
+    # march and refines, the rotated march and anchored refines (plan
+    # (5, 3)), every level of the dense hierarchy; kernel 4 at the gather
+    # A/B's shapes
+    wide_g = reference_helper().wide_netg("cuda")
+    shapes += [("fused_ray_mlp", "march_w2048", wide_g, 33 * 33, 33, 1),
+               ("fused_ray_mlp", "refine65_w2048", wide_g, 65 * 65, 6, 1),
+               ("fused_ray_mlp", "refine257_w2048", wide_g, 192 * 192, 6,
+                1),
+               ("fused_mlp", "march_w2048", wide_g, 33 ** 3, 1, 1),
+               ("fused_anchor_mlp", "refine65_w2048", wide_g, 2304, 6, 5),
+               ("fused_anchor_mlp", "refine257_w2048", wide_g, 18432, 6,
+                3)]
+    dense_levels = frame_check.quality_config()[0]
+    shapes += [("fused_mlp", f"level_{n}_w2048", wide_g, n, 1, 1)
+               for n in (dense_levels.resolutions[0] ** 3,
+                         *dense_levels.budgets[1:])]
+    shapes += [("fused_gather_mlp", f"{name}_w2048", wide_g, rays, taps, 1)
+               for name, rays, taps in profile_gather.SHAPES]
+    # WIDE_NETG_HEAD's widths under seeded weights that keep the outputs
+    # off the sigmoid's tails (wide_g's sit on them, driven by its z
+    # column): an error in the scratch modes' hidden layers reaches the
+    # output at the bf16 tolerance
+    unsat = seeded_head_net(reference_helper().WIDE_NETG_HEAD, 2048, 0.1)
+    shapes += [("fused_ray_mlp", "march_w2048u", unsat, 33 * 33, 33, 1),
+               ("fused_ray_mlp", "refine257_w2048u", unsat, 192 * 192, 6,
+                1),
+               ("fused_mlp", "march_w2048u", unsat, 33 ** 3, 1, 1),
+               ("fused_mlp", "level_65536_w2048u", unsat, 65536, 1, 1),
+               ("fused_anchor_mlp", "refine257_w2048u", unsat, 18432, 6,
+                3),
+               ("fused_gather_mlp", "fine_192x6_w2048u", unsat, 36864, 6,
+                1)]
+    on_path = {k[0]: k[3] for k in KERNELS}
     rows = []
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         # a head's packing for the kernels that take it (a soft-onehot head
@@ -611,6 +693,7 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                    "dtype": dname, "rays": rays, "taps": taps, "anchors": k,
                    "c_in": p.c_f,
                    "route": ROUTES.get((kernel, dname), "tiles_fma"),
+                   "mode": kernel_mode(p, dname),
                    "max_abs_err": float(err.max().item()),
                    "p999_abs_err": p999,
                    "atol": tol["atol"], "rtol": tol["rtol"], "ok": ok,
@@ -620,6 +703,25 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                    "bound_ms": max(t_ops, t_byte) * 1e3,
                    "bound_by": "operations" if t_ops >= t_byte else "bytes",
                    "library_ms": None}
+            if net is wide_g or net is unsat:
+                row["unsaturated_share"] = float(
+                    ((want > 0.02) & (want < 0.98)).float().mean().item())
+            if net is unsat and row["unsaturated_share"] < 0.5:
+                fail(f"{kernel} {name}: the seeded head's outputs sit on "
+                     f"the sigmoid's tails: {row['unsaturated_share']}")
+            if (dname == "bf16" and (net is netG or net is netC)
+                    and name in on_path[kernel]):
+                # the published head forced into the scratch mode (the
+                # same products in the same order: bit-equal), timed
+                # between two in-place timings
+                with forced_scratch():
+                    forced = fn(p, *args)
+                    row["scratch_ms"] = cuda_ms(lambda: fn(p, *args), reps)
+                row["in_place_ms_after"] = cuda_ms(lambda: fn(p, *args),
+                                                   reps)
+                if not torch.equal(forced, got):
+                    fail(f"{kernel} {name}: the scratch mode changes the "
+                         f"published head's outputs")
             if row["route"] == "sm90_mix_wgmma":
                 row.update(mix_phase(kernel, p, args, reps))
                 row["recompute"] = (
@@ -646,6 +748,18 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                      f"{row['mix_max_ulps']} bf16 ulps from mix_rows_plain")
             rows.append(row)
     return rows
+
+
+def kernel_mode(p, dname: str) -> str:
+    """The mode a pack runs in: the bf16 wgmma kernel in place or with its
+    device-memory scratch; the f32 layer kernel's activations in shared
+    memory or in device memory."""
+    from monoport_tpu_torch.ops.cuda import wgmma
+
+    if dname == "bf16":
+        return ("scratch" if wgmma.needs_scratch(p.tile_widths)
+                else "in_place")
+    return "activation_scratch" if p.f32_scratch else "shared"
 
 
 def ray_chunks(net, rays: int, taps: int, block_rows: int) -> int:
@@ -983,6 +1097,7 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
 
     from monoport_tpu_torch import frame_check
     from monoport_tpu_torch.engine import ReconEngine, RotatedCfg
+    from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
     from monoport_tpu_torch.recon.marching import extract_mesh
 
     golden = frame_check.load_golden(frame_check.GOLDEN_DENSE)
@@ -1040,8 +1155,8 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
         torch.cuda.synchronize()
     calls32 = mlp_calls([(e.key, 0.0, e.count) for e in prof.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA])
-    chunks = ray_chunks(netC, res * res, 1, F32_BLOCK_ROWS) + sum(
-        ray_chunks(netG, n, 1, F32_BLOCK_ROWS) for n in (
+    chunks = ray_chunks(netC, res * res, 1, tray.F32_BM) + sum(
+        ray_chunks(netG, n, 1, tray.F32_BM) for n in (
             recon32.resolutions[0] ** 3, *recon32.budgets[1:]))
     want32 = {"wgmma_point": 0, "wgmma_ray": 0, "wgmma_anchor": 0,
               "mix_rows": 0, "mlp_kernel": chunks, "xproj_kernel": chunks}
@@ -1660,18 +1775,148 @@ def softonehot_phase(netC, counters: dict, card: str) -> dict:
     return total
 
 
+def wide_head_phase(netG, netC, counters: dict, card: str) -> dict:
+    """The wide netG (``tests/torch_reference_state.wide_netg``: the
+    committed HGFilter under a seeded ``WIDE_NETG_HEAD`` head, which the
+    in-place bf16 kernel cannot hold) with the committed netC: the
+    frontal, rotated and dense frames at full width, bf16 timed with the
+    counts zeroed and read around them (the launches of phases 4-6: the
+    pose's plan), no stream sync; each frame in bf16 and f32 held to the
+    same frame through the plain kernels on the card at the view's
+    ``frame_check`` limits (f32: ``recon_counts`` equal). Then the
+    committed netG's head forced into both scratch modes at the frontal
+    refine's and the dense level's shapes: bit-equal to the in-place
+    kernels. -> launches by kernel."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
+    from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+
+    net = reference_helper().wide_netg("cuda")
+    head = net.surface_classifier
+    modes = {"bf16_ray": kernel_mode(tray.pack_ray_mlp_params(head), "bf16"),
+             "bf16_point": kernel_mode(tmlp.pack_mlp_params(head), "bf16"),
+             "f32": kernel_mode(tray.pack_ray_mlp_params(
+                 head, torch.float32), "f32")}
+    if set(modes.values()) != {"scratch", "activation_scratch"}:
+        fail(f"the wide head does not run the scratch modes: {modes}")
+    image = torch.from_numpy(frame_check.load_golden()["image"]).cuda()
+    eye = frame_check.load_golden()["calib"]
+    zero = dict.fromkeys(counters, 0)
+    total = dict(zero)
+    dense_recon = frame_check.quality_config()[0]
+    levels = len(dense_recon.resolutions)
+    rd = frame_check.QUALITY_RESOLUTIONS[-1]
+    views = {"frontal": (frame_check.rtl_config, eye,
+                         frame_check.BF16_LIMITS),
+             "rotated": (frame_check.rtl_config, frame_check.rotated_calib(),
+                         frame_check.BF16_ROTATED_LIMITS),
+             "dense": (frame_check.quality_config, eye,
+                       frame_check.BF16_DENSE_LIMITS)}
+    for view, (config, calib, limits16) in views.items():
+        engines = {}
+        for dname, dtype in (("bf16", torch.bfloat16),
+                             ("f32", torch.float32)):
+            recon, cfg = config(dtype)
+            engines[dname] = ReconEngine(net, netC, recon=recon, config=cfg)
+        eng = engines["bf16"]
+        shapes, expect = FRAME_SHAPES, dict(FRONTAL_EXPECT)
+        if view == "rotated":
+            plan = eng._rot_anchor_plan(calib, image.shape[1])
+            expect = rotated_expect(plan)
+        elif view == "dense":
+            expect = {**zero, "fused_ray_mlp": 1, "fused_mlp": levels}
+            shapes = {**FRAME_SHAPES, "sdf": (rd, rd, rd),
+                      "recon_counts": (levels - 1,)}
+        out, med, launches = timed_frames(
+            eng, image, calib, counters, expect, f"wide_{view}", card,
+            shapes, depth_on_valid=view == "dense")
+        for k, n in launches.items():
+            total[k] += n
+        emit({"phase": "wide_head", "view": view, "head": list(
+            reference_helper().WIDE_NETG_HEAD), "modes": modes,
+              "launches_per_frame_expected": expect,
+              "valid_fraction": float(out["valid"].float().mean()),
+              **({"recon_counts": out["recon_counts"].tolist(),
+                  "budgets": list(eng.recon.budgets[1:])}
+                 if "recon_counts" in out else {}),
+              **({"compact_dropped": out["compact_dropped"].tolist()}
+                 if "compact_dropped" in out else {})})
+        for dname, limits in (("bf16", limits16),
+                              ("f32", frame_check.F32_LIMITS)):
+            e = engines[dname]
+            got = out if dname == "bf16" else e.frame(image, image, calib)
+            with plain_kernels():
+                want = e.frame(image, image, calib)
+            torch.cuda.synchronize()
+            cmp = frame_check.compare_to_golden(got, as_golden(want), limits)
+            same = {k: got[k].tolist() == want[k].tolist()
+                    for k in ("recon_counts", "compact_dropped") if k in got}
+            emit({"phase": "wide_head_vs_plain", "view": view,
+                  "dtype": dname, **cmp, "equal": same,
+                  "limits": limits._asdict(),
+                  "note": "random-weight head: not a quality result",
+                  "card": card})
+            if not cmp["ok"]:
+                fail(f"{dname} wide-head {view} frame disagrees with its "
+                     f"plain-kernel run: {cmp}")
+            if dname == "f32" and not all(same.values()):
+                fail(f"f32 wide-head {view} frame against its plain-kernel "
+                     f"run: {same}")
+            del want
+        del engines, eng, out
+        torch.cuda.empty_cache()
+
+    # the published head forced through the scratch modes: the same
+    # products in the same order as in place, so bit-equal
+    rng = np.random.RandomState(14)
+    feat = torch.from_numpy(rng.randn(1, 192 * 192, 256).astype(
+        np.float32)).cuda()
+    z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, 192 * 192, 6)).astype(
+        np.float32)).cuda()
+    x = torch.from_numpy(rng.randn(1, 65536, 257).astype(np.float32)).cuda()
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        pr = tray.pack_ray_mlp_params(netG.surface_classifier, dtype,
+                                      "cuda")
+        pm = tmlp.pack_mlp_params(netG.surface_classifier, dtype, "cuda")
+        run = lambda: (tray.apply_ray(pr, feat, z), tmlp.apply_mlp(pm, x))
+        base = run()
+        with forced_scratch():
+            forced = run()
+            torch.cuda.synchronize()
+        equal = [bool(torch.equal(a, b)) for a, b in zip(base, forced)]
+        emit({"phase": "wide_head_scratch_vs_in_place", "dtype": dname,
+              "shapes": ["refine257 ray 36864 x 6", "level 65536 points"],
+              "bit_equal": equal, "card": card})
+        if not all(equal):
+            fail(f"{dname}: the scratch modes change netG's outputs: "
+                 f"{equal}")
+    del net
+    torch.cuda.empty_cache()
+    return total
+
+
 def gather_phase(counters: dict) -> int:
-    """The gathering kernel's entry point. -> its launches there."""
+    """The gathering kernel's entry point, at the netG head and at the
+    wide netG's (``WIDE_NETG_HEAD``: the scratch mode). -> its launches
+    there."""
     from monoport_tpu_torch import profile_gather
 
-    for fn in counters.values():
-        fn.launches = 0
-    res = profile_gather.run()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    emit({"phase": "gather_ab", **res, "launches": launches})
-    if launches["fused_gather_mlp"] < 1 or launches["fused_ray_mlp"] < 1:
-        fail(f"the gather A/B launched {launches}")
-    return launches["fused_gather_mlp"]
+    total = 0
+    for chans in (profile_gather.CH, reference_helper().WIDE_NETG_HEAD):
+        for fn in counters.values():
+            fn.launches = 0
+        res = profile_gather.run(chans=chans)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        emit({"phase": "gather_ab", **res, "launches": launches})
+        if launches["fused_gather_mlp"] < 1 or \
+                launches["fused_ray_mlp"] < 1:
+            fail(f"the gather A/B launched {launches}")
+        total += launches["fused_gather_mlp"]
+    return total
 
 
 def read_part(res) -> bytes:
@@ -2270,6 +2515,73 @@ def capsule_app_phase(netC, counters: dict, card: str) -> dict:
     return launches
 
 
+# phase train_ppl: the r5 recipe cut to 2 subjects x 4 rotations (2 steps
+# an epoch) and 3 netG epochs; phase C at the recipe's own 12 epochs,
+# resumed after its sixth; in a process of its own with a time limit: a
+# loader worker that hangs fails the phase instead of the run. Phase C
+# needs the epochs: the recipe's Adam at lr 1e-3 first throws netC's tanh
+# head off its small init (its loss rose from 0.44 to 1.21 over the first
+# 4 steps on an H100, 0.44 to 0.94 on the CPU) and brings it back below
+# that within ~12 steps; with 8 epochs, one H100 run's later half (2-step
+# epochs just after the resume) averaged 0.4386 against a first epoch of
+# 0.4333.
+TRAIN_PPL_ARGS = ["--recipe", "r5", "--subjects", "2", "--rotation_step",
+                  "90", "--epochs_g", "3", "--epochs_c", "12",
+                  "--epochs_c_resume_at", "6"]
+TRAIN_PPL_SECONDS = 240
+
+
+def train_ppl_phase(card: str) -> None:
+    """``apps.train_ppl`` (the fixture trees -> forked loader workers ->
+    Trainer -> resume; netG, then netC on its prior) cut to size: losses
+    finite and falling (each phase's later half of epochs below its first
+    epoch on average: an epoch is 2 steps, so one epoch's mean is noisy),
+    the resumed optimizer tensors, step and epoch equal to the saved ones,
+    none of our kernels launched in a step, and the trained nets' bf16
+    frame exactly 4 ray-MLP launches."""
+    import math
+
+    import signal
+
+    cmd = [sys.executable, "-m", "monoport_tpu_torch.apps.train_ppl",
+           *TRAIN_PPL_ARGS]
+    t0 = time.perf_counter()
+    # a session of its own: on a timeout the app and its loader workers go
+    # together
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=TRAIN_PPL_SECONDS)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, stderr = proc.communicate()
+        fail(f"train_ppl did not end within {TRAIN_PPL_SECONDS} s (a hung "
+             f"loader worker?): {stderr[-2000:]}")
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"train_ppl exited {proc.returncode}: {stderr[-3000:]}")
+    res = json.loads(lines[-1])
+    emit({"phase": "train_ppl", "args": TRAIN_PPL_ARGS,
+          "wall_s": seconds, **res, "card": card})
+    losses = res["netg_epoch_losses"], res["netc_epoch_losses"]
+    frame = res["frame"]
+    if not all(math.isfinite(v) for ladder in losses for v in ladder):
+        fail(f"train_ppl losses not finite: {losses}")
+    late = [statistics.mean(ladder[len(ladder) // 2:]) for ladder in losses]
+    if not all(m < ladder[0] for m, ladder in zip(late, losses)):
+        fail(f"train_ppl losses did not fall: {losses}")
+    if not res["resume"]["exact"]:
+        fail(f"train_ppl's resume: {res['resume']}")
+    if any(res["training_kernel_launches"].values()):
+        fail(f"a train step launched {res['training_kernel_launches']}")
+    if frame["profile"] != "bench_bf16" or not frame["finite"] or \
+            frame["launches"] != {**dict.fromkeys(frame["launches"], 0),
+                                  "fused_ray_mlp": 4}:
+        fail(f"the trained nets' frame: {frame}")
+
+
 def trainer_phase(card: str) -> None:
     """Phase 13c: ``apps.train`` (the Trainer) on the synthetic blobs at
     the published netG width (256^2 images, batch 2, the config's
@@ -2792,6 +3104,10 @@ def kernels_line(rows: list, launches: dict) -> dict:
             "bound_by": "operations"
             if all(r["bound_by"] == "operations" for r in path) else "bytes",
             "library_ms": None,
+            # the same launches forced into the scratch mode, and in place
+            # again after it
+            "scratch_ms": sum(r["scratch_ms"] for r in path),
+            "in_place_ms_after": sum(r["in_place_ms_after"] for r in path),
             "shapes": {f"{r['shape']}/{r['dtype']}": {
                 k: r[k] for k in ("route", "ms", "plain_ms", "bound_ms",
                                   "max_abs_err", "p999_abs_err")}
@@ -2844,6 +3160,8 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in softonehot_phase(netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in wide_head_phase(netG, netC, counters, card).items():
+        launches[name] = launches.get(name, 0) + n
     launches["fused_gather_mlp"] = gather_phase(counters)
     for name, n in serve_phase(counters, card).items():
         launches[name] = launches.get(name, 0) + n
@@ -2854,6 +3172,7 @@ def main() -> int:
     for name, n in capsule_app_phase(netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     trainer_phase(card)
+    train_ppl_phase(card)
     torch.cuda.empty_cache()
     for name, n in sharded_phase(netG, netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n

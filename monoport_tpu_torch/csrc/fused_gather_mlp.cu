@@ -55,14 +55,15 @@ int mix_gather_rows(const void* table, int ld, int c_f, const float* wgt,
 // other arguments as mlp_forward (mlp_tiles.cuh).
 int fused_gather_mlp_forward(const void* table, const int* idx,
                              const float* wgt, const float* z, float* out,
-                             float* xp, int xp_rows, const void* wf,
-                             const void* wh, const float* wz, const float* b,
-                             const int* widths, int n_layers, int out_dim,
-                             int last_op, int R, int taps, void* stream) {
+                             float* xp, int xp_rows, float* hs, int h_slots,
+                             const void* wf, const void* wh, const float* wz,
+                             const float* b, const int* widths, int n_layers,
+                             int out_dim, int last_op, int R, int taps,
+                             void* stream) {
   if (z == nullptr || idx == nullptr || wgt == nullptr) return 1009;
-  return mlp_forward(table, z, nullptr, out, xp, xp_rows, wf, wh, wz, b,
-                     widths, n_layers, out_dim, last_op, R, taps, 1, stream,
-                     idx, wgt);
+  return mlp_forward(table, z, nullptr, out, xp, xp_rows, hs, h_slots, wf, wh,
+                     wz, b, widths, n_layers, out_dim, last_op, R, taps, 1,
+                     stream, idx, wgt);
 }
 
 }  // extern "C"

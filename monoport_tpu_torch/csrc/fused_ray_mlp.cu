@@ -7,7 +7,8 @@
 // leaky-ReLU 0.01 between layers, sigmoid / tanh / none after the last.
 // Two dtypes, two routes:
 //  * bf16 (fused_ray_mlp_wgmma_forward): the wgmma kernel of wgmma_mlp.cuh
-//    (one pass, one launch, no scratch; design there) with RayEpilogue. A
+//    (one pass, one launch, no scratch, or its scratch mode for a head the
+//    shared h buffer cannot hold; design there) with RayEpilogue. A
 //    row is a (ray, tap): a block owns 64 rays at one tap, its x tile the
 //    rays' features by the TMA tensor map, and adds z * w_z + b in f32 in
 //    the layer epilogue. The TPU kernel computes feat . W_f once a ray and
@@ -19,7 +20,8 @@
 //    36,864 rays x 6 taps on an H100 (PERF.md).
 //  * f32 (fused_ray_mlp_forward): the parity route on plain FMA,
 //    mlp_tiles.cuh (an xproj pass into a bounded f32 scratch, then the layer
-//    kernel). wgmma has no f32 operands, and TF32 would break the 2e-5
+//    kernel, its activations in device memory where shared memory cannot
+//    hold them). wgmma has no f32 operands, and TF32 would break the 2e-5
 //    parity with the f32 reference.
 //
 // The anchored MLP replaces
@@ -65,31 +67,36 @@ namespace {
 template <bool Math>
 int ray_launch(const void* feat, float* out, const void* w, const float* bwz,
                const int* widths, int n_layers, int c_f, int out_dim,
-               int last_op, int R, const float* z, int taps, void* stream) {
+               int last_op, int R, const float* z, int taps, void* hs,
+               int h_slots, int h_width, void* stream) {
   if (z == nullptr) return 1009;
   WgmmaDims d;
-  const int bad = wgmma_dims(&d, widths, n_layers, c_f, out_dim, last_op);
+  const int bad = wgmma_dims(&d, widths, n_layers, c_f, out_dim, last_op,
+                             h_width);
   if (bad) return bad;
   if (R < 1 || taps < 1) return 1002;
   const RayEpilogue epi{reinterpret_cast<const float4*>(bwz), z, out, R, taps};
   return wgmma_launch<RayEpilogue, Math>(
-      feat, R, w, epi, (long long)taps * ((R + kBM - 1) / kBM), d, stream);
+      feat, R, w, epi, (long long)taps * ((R + kBM - 1) / kBM), d, hs,
+      h_slots, stream);
 }
 
 template <bool Math>
 int anchor_launch(const void* x, float* out, const void* w, const float* bwz,
                   const int* widths, int n_layers, int c_f, int out_dim,
-                  int last_op, int M, const float* z, int taps,
-                  void* stream) {
+                  int last_op, int M, const float* z, int taps, void* hs,
+                  int h_slots, int h_width, void* stream) {
   if (z == nullptr) return 1009;
   WgmmaDims d;
-  const int bad = wgmma_dims(&d, widths, n_layers, c_f, out_dim, last_op);
+  const int bad = wgmma_dims(&d, widths, n_layers, c_f, out_dim, last_op,
+                             h_width);
   if (bad) return bad;
   if (M < 1 || taps != 1) return 1002;
   const AnchorEpilogue epi{
       {reinterpret_cast<const float4*>(bwz), z, out, M, 1}};
   return wgmma_launch<AnchorEpilogue, Math>(x, M, w, epi,
-                                            (M + kBM - 1) / kBM, d, stream);
+                                            (M + kBM - 1) / kBM, d, hs,
+                                            h_slots, stream);
 }
 
 }  // namespace
@@ -99,27 +106,32 @@ extern "C" {
 // The f32 route. feat [R, C_f] f32; z [R, taps] f32; out [R, taps,
 // out_dim] f32. The other arguments as mlp_forward (mlp_tiles.cuh).
 int fused_ray_mlp_forward(const void* feat, const float* z, float* out,
-                          float* xp, int xp_rows, const void* wf,
-                          const void* wh, const float* wz, const float* b,
-                          const int* widths, int n_layers, int out_dim,
-                          int last_op, int R, int taps, void* stream) {
+                          float* xp, int xp_rows, float* hs, int h_slots,
+                          const void* wf, const void* wh, const float* wz,
+                          const float* b, const int* widths, int n_layers,
+                          int out_dim, int last_op, int R, int taps,
+                          void* stream) {
   if (z == nullptr) return 1009;
-  return mlp_forward(feat, z, nullptr, out, xp, xp_rows, wf, wh, wz, b,
-                     widths, n_layers, out_dim, last_op, R, taps, 1, stream);
+  return mlp_forward(feat, z, nullptr, out, xp, xp_rows, hs, h_slots, wf, wh,
+                     wz, b, widths, n_layers, out_dim, last_op, R, taps, 1,
+                     stream);
 }
 
 // The bf16 route. feat [R, c_f] bf16 (c_f a multiple of 32); w the packed
 // weight stream (ops/cuda/wgmma.py: tile_stream); bwz [2 sum(widths)] f32,
 // {b, b, w_z, w_z} a column pair at kernel widths; widths the n_layers
-// kernel widths; z [R, taps] f32; out [R, taps, out_dim] f32. Returns a
+// kernel widths; z [R, taps] f32; out [R, taps, out_dim] f32; hs null (and
+// h_slots, h_width 0) for the in-place kernel, else the scratch mode's
+// [h_slots * 2 * 64, h_width] bf16 scratch (wgmma_mlp.cuh). Returns a
 // cudaError_t, or 1000 + code for a bad argument.
 int fused_ray_mlp_wgmma_forward(const void* feat, float* out, const void* w,
                                 const float* bwz, const int* widths,
                                 int n_layers, int c_f, int out_dim,
                                 int last_op, int R, const float* z, int taps,
+                                void* hs, int h_slots, int h_width,
                                 void* stream) {
   return ray_launch<true>(feat, out, w, bwz, widths, n_layers, c_f, out_dim,
-                          last_op, R, z, taps, stream);
+                          last_op, R, z, taps, hs, h_slots, h_width, stream);
 }
 
 // The same launch with the math off: the ring streams every weight and x
@@ -128,9 +140,10 @@ int fused_ray_mlp_wgmma_stream(const void* feat, float* out, const void* w,
                                const float* bwz, const int* widths,
                                int n_layers, int c_f, int out_dim,
                                int last_op, int R, const float* z, int taps,
+                               void* hs, int h_slots, int h_width,
                                void* stream) {
   return ray_launch<false>(feat, out, w, bwz, widths, n_layers, c_f, out_dim,
-                           last_op, R, z, taps, stream);
+                           last_op, R, z, taps, hs, h_slots, h_width, stream);
 }
 
 // The bf16 route's pass: the mixed rows of every (ray, tap). anchors
@@ -154,9 +167,11 @@ int fused_anchor_mlp_wgmma_forward(const void* x, float* out, const void* w,
                                    const float* bwz, const int* widths,
                                    int n_layers, int c_f, int out_dim,
                                    int last_op, int M, const float* z,
-                                   int taps, void* stream) {
+                                   int taps, void* hs, int h_slots,
+                                   int h_width, void* stream) {
   return anchor_launch<true>(x, out, w, bwz, widths, n_layers, c_f, out_dim,
-                             last_op, M, z, taps, stream);
+                             last_op, M, z, taps, hs, h_slots, h_width,
+                             stream);
 }
 
 // The same launch with the math off (out is not touched).
@@ -164,23 +179,26 @@ int fused_anchor_mlp_wgmma_stream(const void* x, float* out, const void* w,
                                   const float* bwz, const int* widths,
                                   int n_layers, int c_f, int out_dim,
                                   int last_op, int M, const float* z,
-                                  int taps, void* stream) {
+                                  int taps, void* hs, int h_slots,
+                                  int h_width, void* stream) {
   return anchor_launch<false>(x, out, w, bwz, widths, n_layers, c_f, out_dim,
-                              last_op, M, z, taps, stream);
+                              last_op, M, z, taps, hs, h_slots, h_width,
+                              stream);
 }
 
 // The f32 route. feat [R, n_anchors, C_f] f32; wk [R, taps, n_anchors]
 // f32; z [R, taps] f32; out [R, taps, out_dim] f32.
 int fused_anchor_mlp_forward(const void* feat, const float* wk,
                              const float* z, float* out, float* xp,
-                             int xp_rows, const void* wf, const void* wh,
-                             const float* wz, const float* b,
-                             const int* widths, int n_layers, int out_dim,
-                             int last_op, int R, int taps, int n_anchors,
-                             void* stream) {
+                             int xp_rows, float* hs, int h_slots,
+                             const void* wf, const void* wh, const float* wz,
+                             const float* b, const int* widths, int n_layers,
+                             int out_dim, int last_op, int R, int taps,
+                             int n_anchors, void* stream) {
   if (z == nullptr || wk == nullptr) return 1009;
-  return mlp_forward(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, widths,
-                     n_layers, out_dim, last_op, R, taps, n_anchors, stream);
+  return mlp_forward(feat, z, wk, out, xp, xp_rows, hs, h_slots, wf, wh, wz,
+                     b, widths, n_layers, out_dim, last_op, R, taps,
+                     n_anchors, stream);
 }
 
 }  // extern "C"

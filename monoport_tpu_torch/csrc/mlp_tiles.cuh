@@ -39,6 +39,17 @@
 //    scratch does not grow with the ray count.
 //  * channel widths are padded to multiples of 32 by the packer; T and
 //    n_anchors are runtime arguments.
+//  * activation scratch, for heads whose two activation buffers pass the
+//    232,448 B a block may opt into (BM x (widest even layer + widest odd
+//    layer) x 4 B: 32 x (2,052 + 1,028) x 4 = 394 KB for a 2048-1024 head,
+//    against ~206 KB for the published 1024-512 heads). The packer decides
+//    from the widths, before any launch (ops/cuda/fused_ray_mlp.py:
+//    f32_scratch), and passes a device-memory scratch of h_slots blocks'
+//    buffers: the layer kernel then keeps h_a / h_b there, runs a
+//    persistent grid of at most h_slots blocks, each block its own slot,
+//    walking the row blocks, and its shared memory holds only the weight
+//    tile and the row terms. The same FMA code reads and writes them, so
+//    the arithmetic (and the 2e-5 parity) is unchanged.
 
 #pragma once
 
@@ -303,6 +314,9 @@ __global__ void __launch_bounds__(kThreads)
 // The per-(ray, tap) MLP over BM flattened rows (row = ray * taps + tap).
 // z may be null (no z term). Mixed: wk holds the rows' hat weights over the
 // ray's n_anchors input rows; else a ray has one input row of weight 1.
+// hs null: the activations in shared memory, one row block a block; else
+// the block's slot of the device-memory activation scratch ([gridDim.x,
+// BM, ld_a + ld_b]) and a walk over every row block, gridDim.x apart.
 template <class Cfg, bool Mixed>
 __global__ void __launch_bounds__(kThreads)
     mlp_kernel(const float* __restrict__ xp, const float* __restrict__ z,
@@ -310,107 +324,114 @@ __global__ void __launch_bounds__(kThreads)
                const typename Cfg::T* __restrict__ wh,
                const float* __restrict__ wz, const float* __restrict__ bias,
                float* __restrict__ out, int rows, int taps, int n_anchors,
-               int ld_a, int ld_b, MlpDims d) {
+               int ld_a, int ld_b, typename Cfg::T* hs,
+               MlpDims d) {
   using T = typename Cfg::T;
   constexpr int BM = Cfg::BM;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* h_a = reinterpret_cast<T*>(smem);
+  T* h_a = hs ? hs + (size_t)blockIdx.x * BM * (ld_a + ld_b)
+              : reinterpret_cast<T*>(smem);
   T* h_b = h_a + BM * ld_a;
-  T* sB = h_b + BM * ld_b;
+  T* sB = hs ? reinterpret_cast<T*>(smem) : h_b + BM * ld_b;
   float* s_z = reinterpret_cast<float*>(sB + Cfg::SB_ELEMS);
   int* s_ray = reinterpret_cast<int*>(s_z + BM);
   float* s_w = reinterpret_cast<float*>(s_ray + BM);
 
-  const int row0 = blockIdx.x * BM;
-  for (int m = threadIdx.x; m < BM; m += kThreads) {
-    const int gr = row0 + m;
-    s_z[m] = (z != nullptr && gr < rows) ? z[gr] : 0.f;
-    s_ray[m] = gr < rows ? gr / taps : -1;
-  }
-  if constexpr (Mixed) {
-    for (int q = threadIdx.x; q < BM * n_anchors; q += kThreads) {
-      const int gr = row0 + q / n_anchors;
-      s_w[q] = gr < rows ? wk[(size_t)row0 * n_anchors + q] : 0.f;
+  const int stride = hs ? gridDim.x : (rows + BM - 1) / BM;
+  for (int blk = blockIdx.x; blk < (rows + BM - 1) / BM; blk += stride) {
+    const int row0 = blk * BM;
+    for (int m = threadIdx.x; m < BM; m += kThreads) {
+      const int gr = row0 + m;
+      s_z[m] = (z != nullptr && gr < rows) ? z[gr] : 0.f;
+      s_ray[m] = gr < rows ? gr / taps : -1;
     }
-  }
-  __syncthreads();
-
-  const int L = d.n_layers;
-  // layer 0: no hidden input, only the shared projection + z + bias
-  {
-    const int w0 = d.width[1], off = d.xoff[0];
-    const bool last = (L == 1);
-    for (int q = threadIdx.x; q < BM * w0; q += kThreads) {
-      const int m = q / w0, o = q % w0;
-      const int ray = s_ray[m];
-      float v = 0.f;
-      if (ray >= 0) {
-        shared_proj<1, Mixed>(&v, xp, s_w, m, ray, n_anchors, d.ntot, off + o);
-        v = v + s_z[m] * wz[off + o] + bias[off + o];
-        v = activate(v, last, d.last_op);
+    if constexpr (Mixed) {
+      for (int q = threadIdx.x; q < BM * n_anchors; q += kThreads) {
+        const int gr = row0 + q / n_anchors;
+        s_w[q] = gr < rows ? wk[(size_t)row0 * n_anchors + q] : 0.f;
       }
-      if (last) {
-        if (ray >= 0 && o < d.out_dim)
-          out[(size_t)(row0 + m) * d.out_dim + o] = v;
-      } else {
-        h_a[m * ld_a + o] = Cfg::from_float(v);
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = 1; i < L; ++i) {
-    const T* src = (i & 1) ? h_a : h_b;
-    T* dst = (i & 1) ? h_b : h_a;
-    const int lds = (i & 1) ? ld_a : ld_b;
-    const int ldd = (i & 1) ? ld_b : ld_a;
-    const int K = d.width[i], N = d.width[i + 1], off = d.xoff[i];
-    const bool last = (i == L - 1);
-    const T* w = wh + d.whoff[i];
-    for (int n0 = 0; n0 < N; n0 += Cfg::BN) {
-      Cfg::gemm(src, lds, K, w, n0, N, sB, [&](int m, int col, auto... vs) {
-        // W neighbouring columns of row m (N is a multiple of W)
-        constexpr int W = sizeof...(vs);
-        const float acc[W] = {vs...};
-        if (col >= N) return;
-        const int ray = s_ray[m];
-        float v[W];
-#pragma unroll
-        for (int j = 0; j < W; ++j) v[j] = 0.f;
-        if (ray >= 0) {
-          float sp[W], wzv[W], bv[W];
-          shared_proj<W, Mixed>(sp, xp, s_w, m, ray, n_anchors, d.ntot,
-                                off + col);
-          load_vec<W>(wzv, wz + off + col);
-          load_vec<W>(bv, bias + off + col);
-          const float zm = s_z[m];
-#pragma unroll
-          for (int j = 0; j < W; ++j)
-            v[j] = activate(acc[j] + sp[j] + zm * wzv[j] + bv[j], last,
-                            d.last_op);
-        }
-        if (last) {
-#pragma unroll
-          for (int j = 0; j < W; ++j)
-            if (ray >= 0 && col + j < d.out_dim)
-              out[(size_t)(row0 + m) * d.out_dim + col + j] = v[j];
-        } else {
-          Cfg::template store<W>(dst + m * ldd + col, v);
-        }
-      });
     }
     __syncthreads();
+
+    const int L = d.n_layers;
+    // layer 0: no hidden input, only the shared projection + z + bias
+    {
+      const int w0 = d.width[1], off = d.xoff[0];
+      const bool last = (L == 1);
+      for (int q = threadIdx.x; q < BM * w0; q += kThreads) {
+        const int m = q / w0, o = q % w0;
+        const int ray = s_ray[m];
+        float v = 0.f;
+        if (ray >= 0) {
+          shared_proj<1, Mixed>(&v, xp, s_w, m, ray, n_anchors, d.ntot, off + o);
+          v = v + s_z[m] * wz[off + o] + bias[off + o];
+          v = activate(v, last, d.last_op);
+        }
+        if (last) {
+          if (ray >= 0 && o < d.out_dim)
+            out[(size_t)(row0 + m) * d.out_dim + o] = v;
+        } else {
+          h_a[m * ld_a + o] = Cfg::from_float(v);
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int i = 1; i < L; ++i) {
+      const T* src = (i & 1) ? h_a : h_b;
+      T* dst = (i & 1) ? h_b : h_a;
+      const int lds = (i & 1) ? ld_a : ld_b;
+      const int ldd = (i & 1) ? ld_b : ld_a;
+      const int K = d.width[i], N = d.width[i + 1], off = d.xoff[i];
+      const bool last = (i == L - 1);
+      const T* w = wh + d.whoff[i];
+      for (int n0 = 0; n0 < N; n0 += Cfg::BN) {
+        Cfg::gemm(src, lds, K, w, n0, N, sB, [&](int m, int col, auto... vs) {
+          // W neighbouring columns of row m (N is a multiple of W)
+          constexpr int W = sizeof...(vs);
+          const float acc[W] = {vs...};
+          if (col >= N) return;
+          const int ray = s_ray[m];
+          float v[W];
+#pragma unroll
+          for (int j = 0; j < W; ++j) v[j] = 0.f;
+          if (ray >= 0) {
+            float sp[W], wzv[W], bv[W];
+            shared_proj<W, Mixed>(sp, xp, s_w, m, ray, n_anchors, d.ntot,
+                                  off + col);
+            load_vec<W>(wzv, wz + off + col);
+            load_vec<W>(bv, bias + off + col);
+            const float zm = s_z[m];
+#pragma unroll
+            for (int j = 0; j < W; ++j)
+              v[j] = activate(acc[j] + sp[j] + zm * wzv[j] + bv[j], last,
+                              d.last_op);
+          }
+          if (last) {
+#pragma unroll
+            for (int j = 0; j < W; ++j)
+              if (ray >= 0 && col + j < d.out_dim)
+                out[(size_t)(row0 + m) * d.out_dim + col + j] = v[j];
+          } else {
+            Cfg::template store<W>(dst + m * ldd + col, v);
+          }
+        });
+      }
+      __syncthreads();
+    }
   }
 }
 
 // gidx, gwgt: null, or the [R, 4] bilinear taps of the gathering form; feat
 // is then the [*, C_f] table and is not walked with the rays.
+// hs, h_slots: null and 0, or the activation scratch of h_slots blocks
+// ([h_slots, BM, ld_a + ld_b] of the operand type).
 template <class Cfg>
 int launch(const void* feat, const float* z, const float* wk, float* out,
-           float* xp, int xp_rows, const void* wf, const void* wh,
-           const float* wz, const float* b, const MlpDims& d, int R, int taps,
-           int n_anchors, cudaStream_t stream, const int* gidx,
-           const float* gwgt) {
+           float* xp, int xp_rows, typename Cfg::T* hs, int h_slots,
+           const void* wf, const void* wh, const float* wz, const float* b,
+           const MlpDims& d, int R, int taps, int n_anchors,
+           cudaStream_t stream, const int* gidx, const float* gwgt) {
   using T = typename Cfg::T;
   const int c_f = d.width[0];
   int max_even = 0, max_odd = 0;
@@ -423,8 +444,10 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
 
   const size_t smem_x =
       sizeof(T) * ((size_t)Cfg::BM * (c_f + Cfg::LD_PAD) + Cfg::SB_ELEMS);
+  if ((hs == nullptr) != (h_slots == 0) || h_slots < 0) return 1013;
   const size_t smem_m =
-      sizeof(T) * ((size_t)Cfg::BM * (ld_a + ld_b) + Cfg::SB_ELEMS) +
+      sizeof(T) * ((hs ? 0 : (size_t)Cfg::BM * (ld_a + ld_b)) +
+                   Cfg::SB_ELEMS) +
       Cfg::BM * (sizeof(float) + sizeof(int)) +
       (size_t)Cfg::BM * n_anchors * sizeof(float);
   const size_t smem_g = smem_x + (size_t)Cfg::BM * 4 * (sizeof(int) +
@@ -479,10 +502,12 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
 
     const int rows = n * taps;
     const size_t row0 = (size_t)r0 * taps;
-    kernel<<<(rows + Cfg::BM - 1) / Cfg::BM, kThreads, smem_m, stream>>>(
+    const int blocks = (rows + Cfg::BM - 1) / Cfg::BM;
+    kernel<<<hs && blocks > h_slots ? h_slots : blocks, kThreads, smem_m,
+             stream>>>(
         xp, z ? z + row0 : nullptr, wk ? wk + row0 * n_anchors : nullptr,
         static_cast<const T*>(wh), wz, b, out + row0 * d.out_dim, rows, taps,
-        n_anchors, ld_a, ld_b, d);
+        n_anchors, ld_a, ld_b, hs, d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -493,7 +518,9 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
 // widths (multiples of 32): [C, out_0, ..., out_(L-1)]. Shapes:
 // feat [R, n_anchors, C]; z [R, taps] f32 or null; wk [R, taps, n_anchors]
 // f32 or null (then n_anchors must be 1); out [R, taps, out_dim] f32;
-// xp scratch [xp_rows, sum(out_i)] f32, xp_rows >= n_anchors; wf
+// xp scratch [xp_rows, sum(out_i)] f32, xp_rows >= n_anchors; hs null
+// (h_slots 0), or the activation scratch [h_slots, BM, ld_a + ld_b] f32
+// (ld_a, ld_b: the widest even- and odd-index layer + 4); wf
 // [sum(out_i), C]; wh the W_h^T of layers 1.. concatenated
 // ([out_i, out_(i-1)] each); wz, b [sum(out_i)] f32.
 // gidx [R, 4] i32 and gwgt [R, 4] f32, both or neither: the gathering form,
@@ -501,6 +528,7 @@ int launch(const void* feat, const float* z, const float* wk, float* out,
 // Returns a cudaError_t (0 on success); 1000 + code for a bad argument.
 inline int mlp_forward(const void* feat, const float* z,
                        const float* wk, float* out, float* xp, int xp_rows,
+                       float* hs, int h_slots,
                        const void* wf, const void* wh, const float* wz,
                        const float* b, const int* widths, int n_layers,
                        int out_dim, int last_op, int R, int taps,
@@ -531,9 +559,9 @@ inline int mlp_forward(const void* feat, const float* z,
     if (i > 0) whoff += (long long)d.width[i + 1] * d.width[i];
   }
   d.ntot = ntot;
-  return launch<F32Cfg>(feat, z, wk, out, xp, xp_rows, wf, wh, wz, b, d, R,
-                        taps, n_anchors, static_cast<cudaStream_t>(stream),
-                        gidx, gwgt);
+  return launch<F32Cfg>(feat, z, wk, out, xp, xp_rows, hs, h_slots, wf, wh,
+                        wz, b, d, R, taps, n_anchors,
+                        static_cast<cudaStream_t>(stream), gidx, gwgt);
 }
 
 }  // namespace

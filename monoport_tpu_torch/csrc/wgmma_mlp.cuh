@@ -54,6 +54,33 @@
 //    follows. Its per-column terms come in one vector load a column pair
 //    (float2 of b; float4 of {b, b, w_z, w_z} for the ray), its per-row z
 //    in registers, read once a block.
+// Scratch mode, for heads the in-place h buffer cannot hold: a hidden layer
+// wider than 1024, or one past the first that needs more than one pass of
+// 512 (it would overwrite the h it still reads). The TPU kernels keep every
+// activation in VMEM and take any width; here the hidden activations live
+// in a device-memory ping-pong scratch instead of the shared h buffer:
+//  * a persistent grid of at most one block an SM (its shared memory and
+//    registers allow one), each block walking row blocks; the scratch is
+//    [blocks, 2, 64, h_width] bf16, a block's two halves indexed by its
+//    blockIdx, so it is sized by resident blocks, not by rows (69 MB for a
+//    2048-wide layer on 132 SMs, where one a row block would be 2 GB at
+//    262,144 rows).
+//  * layer l reads half (l - 1) % 2 and writes half l % 2, so no pass
+//    overwrites its own input, whatever its width.
+//  * the producer streams the h part of each layer's K loop through the
+//    ring as [64, 32] tiles of a second TMA tensor map, as it streams x:
+//    every stage is a weight tile and an A tile (x or h), 64-byte swizzle.
+//  * the epilogue writes h with generic stores to device memory, which the
+//    next layer reads through TMA (the async proxy): each consumer fences
+//    (fence.proxy.async.global), the consumers sync, and one arrival on the
+//    h-ready mbarrier lets the producer, which waits on it before the next
+//    layer's first h tile, go on.
+//  * shared memory: the ring and the barriers, 74,792 B; the h stream adds
+//    64 x K_h x 2 bytes a pass of each layer past the first to the L2 reads.
+// The pack selects this mode only for the heads the in-place design refuses
+// (ops/cuda/wgmma.py: needs_scratch); every other head keeps the in-place
+// kernel.
+//
 // Bound: operations on paper, but every 64-row block streams all the packed
 // weights from L2 (2.5 MB for netG): L2 bandwidth is the floor of this
 // tiling. The stream entry points run the same ring with no math and
@@ -87,6 +114,8 @@ constexpr int kRowBlock = kBM * 16;
 struct WgmmaDims {
   int n_layers, c_in, out_dim, last_op;
   int width[kMaxLayers];                 // kernel widths of the layers
+  int n_blocks;                          // 64-row blocks (x taps for the ray)
+  int h_width;                           // scratch mode: a scratch row's width
 };
 
 // Kernel 2's epilogue: acc + b[col]. Block b owns points [64 b, 64 b + 64).
@@ -197,10 +226,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "r"(smem_addr(bar)) : "memory");
 }
 
-// a [64, 32] tile of x [n_rows, c_in] at (row0, k0) by the tensor map; rows
-// past the end arrive as zeros
-__device__ __forceinline__ void tma_load_x(void* dst, const CUtensorMap* map,
-                                           int k0, int row0, uint64_t* bar) {
+// a [64, 32] tile of a [rows, cols] bf16 tensor (x, or the scratch mode's
+// h) at (row0, k0) by its tensor map; rows past the end arrive as zeros
+__device__ __forceinline__ void tma_load_tile(void* dst,
+                                              const CUtensorMap* map, int k0,
+                                              int row0, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
@@ -224,6 +254,12 @@ __device__ __forceinline__ uint64_t smem_desc_sw64(uint32_t addr) {
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumerThreads) : "memory");
+}
+
+// order this thread's generic accesses to device memory before (and after)
+// the async proxy's, TMA's
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // keep the compiler from moving accumulator reads across wgmma's
@@ -375,31 +411,49 @@ struct Mma<256> {
 };
 
 
-// The producer (one thread starts every copy): each ring stage of the
+// The producer (one thread starts every copy): each ring stage of one row
 // block's layer loop, in the consumers' order. A stage is the next
 // [N_pass, 32] weight tile of the packed stream (one bulk copy) and, in the
-// skip part of a K loop, the block's [64, 32] x tile (one tensor-map copy).
+// skip part of a K loop, the block's [64, 32] x tile (one tensor-map copy);
+// in scratch mode, in the h part, the [64, 32] tile of the h half the layer
+// reads (hrow0: the block's first scratch row), after the h-ready barrier
+// says the layer before has written it. it counts the stages, hwait the
+// h-ready phases waited for, over every row block of the block.
+template <bool Scratch>
 __device__ __forceinline__ void produce(const WgmmaDims& d, unsigned char* ring,
                                         uint64_t* full, uint64_t* empty,
+                                        uint64_t* hready,
                                         const CUtensorMap* xmap,
+                                        const CUtensorMap* hmap,
                                         const unsigned char* __restrict__ w,
-                                        int row0) {
-  int it = 0;
+                                        int row0, int hrow0, int& it,
+                                        int& hwait) {
   for (int l = 0; l < d.n_layers; ++l) {
     const int n = d.width[l], pn = n < kPassN ? n : kPassN;
     const uint32_t wbytes = pn * kBK * 2;
     const int nh = l ? d.width[l - 1] / kBK : 0, nk = nh + d.c_in / kBK;
+    if constexpr (Scratch) {
+      if (l > 0) {
+        mbar_wait(hready, hwait & 1);
+        ++hwait;
+        fence_async_global();
+      }
+    }
     for (int p = 0; p < n / pn; ++p) {
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int s = it % kStages;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         unsigned char* stage = ring + s * kStageBytes;
         const bool with_x = kt >= nh;
-        mbar_expect_tx(&full[s], wbytes + (with_x ? kXTileBytes : 0));
+        mbar_expect_tx(&full[s],
+                       wbytes + (with_x || Scratch ? kXTileBytes : 0));
         bulk_load(stage, w, wbytes, &full[s]);
         if (with_x)
-          tma_load_x(stage + kWTileBytes, xmap, (kt - nh) * kBK, row0,
-                     &full[s]);
+          tma_load_tile(stage + kWTileBytes, xmap, (kt - nh) * kBK, row0,
+                        &full[s]);
+        else if (Scratch)
+          tma_load_tile(stage + kWTileBytes, hmap, kt * kBK,
+                        hrow0 + ((l - 1) & 1) * kBM, &full[s]);
         w += wbytes;
       }
     }
@@ -409,11 +463,14 @@ __device__ __forceinline__ void produce(const WgmmaDims& d, unsigned char* ring,
 // Layer l, all its passes, for the calling consumer warpgroup, which owns
 // NW of each pass's columns. boff is the layer's first column over every
 // layer; it counts the ring stages consumed.
-template <int NW, bool Math, class Epi>
+// In scratch mode h is the block's scratch (both halves), A always the
+// stage's tile, and a hidden layer's output goes to half l % 2 in device
+// memory (row-major, h_width wide), then the h-ready barrier.
+template <int NW, bool Math, bool Scratch, class Epi>
 __device__ __forceinline__ void consume_layer(
     int l, const WgmmaDims& d, unsigned char* ring, uint64_t* full,
-    uint64_t* empty, unsigned char* h, const Epi& epi, int boff, int row0,
-    int& it) {
+    uint64_t* empty, uint64_t* hready, unsigned char* h, const Epi& epi,
+    int boff, int row0, int& it) {
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const int warp = t >> 5, lane = t & 31;
   const int n = d.width[l], pn = n < kPassN ? n : kPassN;
@@ -431,7 +488,7 @@ __device__ __forceinline__ void consume_layer(
       if constexpr (Math) {
         // A: the h columns [32 kt, 32 kt + 32), or the stage's x tile
         unsigned char* stage = ring + s * kStageBytes;
-        const bool from_h = kt < nh;
+        const bool from_h = !Scratch && kt < nh;
         const uint32_t a = from_h ? smem_addr(h) + kt * (kBK / 8) * kRowBlock
                                   : smem_addr(stage + kWTileBytes);
         const uint32_t b = smem_addr(stage) + wg * (NW / 8) * 128;
@@ -450,16 +507,30 @@ __device__ __forceinline__ void consume_layer(
       if (t == 0) mbar_arrive(&empty[s]);
     }
     if constexpr (Math) {
-      // a hidden layer past the first overwrites the h it reads: wait
-      // until both warpgroups are done with it
-      if (l > 0 && !last) consumers_sync();
+      // in place, a hidden layer past the first overwrites the h it reads:
+      // wait until both warpgroups are done with it
+      if (!Scratch && l > 0 && !last) consumers_sync();
       // accumulator j of this thread: row 16 warp + lane / 4 + 8 (j / 2 % 2),
       // column p pn + wg NW + 8 (j / 4) + 2 (lane % 4) + j % 2. The loops are
       // unrolled over up to 128 accumulators: the hidden epilogue is kept to
       // a few instructions an element.
       const int row = warp * 16 + (lane >> 2);
       const int col = p * pn + wg * NW + (lane & 3) * 2;
-      if (!last) {
+      if (!last && Scratch) {
+        // row-major [64, h_width] bf16, the half this layer writes
+        unsigned char* hp = h + ((size_t)((l & 1) * kBM + row) * d.h_width
+                                 + col) * 2;
+        const size_t down8 = (size_t)8 * d.h_width * 2;
+#pragma unroll
+        for (int j = 0; j < NW / 2; j += 2) {
+          const float2 v = epi.add(boff + col + (j >> 2) * 8, acc[j],
+                                   acc[j + 1], (j >> 1) & 1);
+          *reinterpret_cast<__nv_bfloat162*>(hp + (j >> 2) * 16 +
+                                             ((j >> 1) & 1) * down8) =
+              __floats2bfloat162_rn(fmaxf(v.x, 0.01f * v.x),
+                                    fmaxf(v.y, 0.01f * v.y));
+        }
+      } else if (!last) {
         unsigned char* hp = h + (col >> 3) * kRowBlock + (row >> 3) * 128 +
                             (row & 7) * 16 + (col & 7) * 2;
 #pragma unroll
@@ -488,7 +559,17 @@ __device__ __forceinline__ void consume_layer(
       }
     }
   }
-  if (Math && !last) {
+  if constexpr (Scratch) {
+    // h went to device memory by generic stores and is read next by TMA
+    // (the async proxy): fence, then one arrival when both warpgroups have
+    // (the last layer fences too: the next row block's first epilogue
+    // overwrites what TMA read)
+    fence_async_global();
+    if (!last) {
+      consumers_sync();
+      if (threadIdx.x == 0) mbar_arrive(hready);
+    }
+  } else if (Math && !last) {
     // h was written by generic stores and is read next by wgmma (the
     // async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -498,61 +579,95 @@ __device__ __forceinline__ void consume_layer(
 
 // x [n_rows, c_in] bf16 through xmap; w the packed weight stream; epi the
 // layer epilogue and the output. Math = false runs the ring alone (every
-// load, no wgmma, no output): the stream's floor.
-template <class Epi, bool Math>
+// load, no wgmma, no output): the stream's floor. Scratch: h in the
+// device-memory scratch hs through hmap, a persistent grid over the
+// d.n_blocks row blocks; else the in-place h buffer, one row block a block.
+template <class Epi, bool Math, bool Scratch>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
     wgmma_mlp_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap hmap,
+                     unsigned char* __restrict__ hs,
                      const unsigned char* __restrict__ w, const Epi epi_arg,
                      WgmmaDims d) {
   extern __shared__ __align__(128) unsigned char wgmma_smem[];
-  // the ring first, at a 1024-byte boundary: the x tiles' 64-byte swizzle
+  // the ring first, at a 1024-byte boundary: the tiles' 64-byte swizzle
   // repeats every 512 bytes
   unsigned char* ring = wgmma_smem + ((1024 - (smem_addr(wgmma_smem) & 1023))
                                       & 1023);
   unsigned char* h = ring + kStages * kStageBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(h + kBM * kMaxHidden * 2);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      Scratch ? h : h + kBM * kMaxHidden * 2);
   uint64_t* empty = full + kStages;
+  uint64_t* hready = empty + kStages;
+  // the block's two scratch halves
+  const int hrow0 = blockIdx.x * 2 * kBM;
+  if constexpr (Scratch) h = hs + (size_t)hrow0 * d.h_width * 2;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);            // the producer's expect_tx
       mbar_init(&empty[s], 2);           // one arrival a consumer warpgroup
     }
+    mbar_init(hready, 1);                // the consumers, once synced
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   Epi epi = epi_arg;
-  const int row0 = epi.begin(blockIdx.x);
+  int it = 0;
   if (threadIdx.x >= kConsumerThreads) {
-    if (threadIdx.x == kConsumerThreads)
-      produce(d, ring, full, empty, &xmap, w, row0);
+    if (threadIdx.x == kConsumerThreads) {
+      int hwait = 0;
+      const auto rows = [&](int blk) {
+        produce<Scratch>(d, ring, full, empty, hready, &xmap, &hmap, w,
+                         epi.begin(blk), hrow0, it, hwait);
+      };
+      if constexpr (Scratch) {
+        for (int blk = blockIdx.x; blk < d.n_blocks; blk += gridDim.x)
+          rows(blk);
+      } else {
+        rows(blockIdx.x);
+      }
+    }
     return;
   }
-  if constexpr (Math)
-    epi.load_rows(row0, (threadIdx.x & 127) / 32 * 16 +
-                            (threadIdx.x & 31) / 4);
-  int it = 0, boff = 0;
-  for (int l = 0; l < d.n_layers; ++l) {
-    const int nw = (d.width[l] < kPassN ? d.width[l] : kPassN) / 2;
+  const auto rows = [&](int blk) {
+    const int row0 = epi.begin(blk);
+    if constexpr (Math)
+      epi.load_rows(row0, (threadIdx.x & 127) / 32 * 16 +
+                              (threadIdx.x & 31) / 4);
+    int boff = 0;
+    for (int l = 0; l < d.n_layers; ++l) {
+      const int nw = (d.width[l] < kPassN ? d.width[l] : kPassN) / 2;
 #define MLP_LAYER(NW)                                                       \
   case NW:                                                                  \
-    consume_layer<NW, Math>(l, d, ring, full, empty, h, epi, boff, row0,    \
-                            it);                                            \
+    consume_layer<NW, Math, Scratch>(l, d, ring, full, empty, hready, h,    \
+                                     epi, boff, row0, it);                  \
     break;
-    switch (nw) {
-      MLP_LAYER(16)
-      MLP_LAYER(32)
-      MLP_LAYER(64)
-      MLP_LAYER(128)
-      MLP_LAYER(256)
-    }
+      switch (nw) {
+        MLP_LAYER(16)
+        MLP_LAYER(32)
+        MLP_LAYER(64)
+        MLP_LAYER(128)
+        MLP_LAYER(256)
+      }
 #undef MLP_LAYER
-    boff += d.width[l];
+      boff += d.width[l];
+    }
+  };
+  // in scratch mode a persistent walk over the row blocks; in place one
+  if constexpr (Scratch) {
+    for (int blk = blockIdx.x; blk < d.n_blocks; blk += gridDim.x)
+      rows(blk);
+  } else {
+    rows(blockIdx.x);
   }
 }
 
 constexpr size_t kWgmmaSmem =
     1024 + (size_t)kStages * kStageBytes + kBM * kMaxHidden * 2 +
-    2 * kStages * sizeof(uint64_t);
+    (2 * kStages + 1) * sizeof(uint64_t);
+// scratch mode: no shared h buffer
+constexpr size_t kWgmmaSmemScratch =
+    1024 + (size_t)kStages * kStageBytes + (2 * kStages + 1) * sizeof(uint64_t);
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,
@@ -561,11 +676,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// The tensor map of x [n_rows, c_in] bf16 in [64, 32] boxes, 64-byte
-// swizzle. cuTensorMapEncodeTiled comes from the CUDA driver API through
-// the runtime, so the library needs no -lcuda.
-inline int encode_x_map(CUtensorMap* map, const void* x, int n_rows,
-                        int c_in) {
+// The tensor map of a [rows, cols] bf16 tensor (x, or the scratch mode's
+// h) in [64, 32] boxes, 64-byte swizzle. cuTensorMapEncodeTiled comes from
+// the CUDA driver API through the runtime, so the library needs no -lcuda.
+inline int encode_tile_map(CUtensorMap* map, const void* x, long long rows,
+                           int cols) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -576,8 +691,8 @@ inline int encode_x_map(CUtensorMap* map, const void* x, int n_rows,
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return 1012;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)c_in, (cuuint64_t)n_rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)c_in * 2};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   const cuuint32_t box[2] = {kBK, kBM};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
@@ -589,46 +704,73 @@ inline int encode_x_map(CUtensorMap* map, const void* x, int n_rows,
 }
 
 // Check the kernel widths of the layers and fill d: 0, or 1000 + code for a
-// bad argument.
+// bad argument. h_width > 0 asks for the scratch mode (h_width the scratch's
+// row width), 0 for the in-place h buffer.
 inline int wgmma_dims(WgmmaDims* d, const int* widths, int n_layers, int c_in,
-                      int out_dim, int last_op) {
+                      int out_dim, int last_op, int h_width = 0) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 1001;
   if (out_dim < 1) return 1002;
   if (c_in < kBK || c_in % kBK) return 1003;
+  if (h_width < 0 || h_width % kBK) return 1013;
   *d = WgmmaDims{};
   d->n_layers = n_layers;
   d->c_in = c_in;
   d->out_dim = out_dim;
   d->last_op = last_op;
+  d->h_width = h_width;
   for (int i = 0; i < n_layers; ++i) {
     const int v = widths[i];
     const bool one_pass = v == 32 || v == 64 || v == 128 || v == 256 ||
                           v == kPassN;
     if (!one_pass && (v < kPassN || v % kPassN)) return 1003;
-    // h holds a hidden layer's output; one written in place takes one pass
-    if (i < n_layers - 1 && v > kMaxHidden) return 1011;
-    if (i > 0 && i < n_layers - 1 && !one_pass) return 1011;
+    if (i < n_layers - 1) {
+      if (h_width) {
+        // the scratch's rows hold every hidden layer's output
+        if (v > h_width) return 1013;
+      } else {
+        // h holds a hidden layer's output; one written in place takes one
+        // pass
+        if (v > kMaxHidden) return 1011;
+        if (i > 0 && !one_pass) return 1011;
+      }
+    }
     d->width[i] = v;
   }
   if (out_dim > d->width[n_layers - 1]) return 1004;
   return 0;
 }
 
-// Launch `blocks` blocks over x [n_rows, d.c_in] bf16 on the stream.
+// Launch over x [n_rows, d.c_in] bf16 on the stream, d.n_blocks row blocks.
+// hs: null for the in-place kernel (a block a row block); else the scratch
+// mode's [h_slots * 2 * 64, d.h_width] bf16 scratch, and a persistent grid
+// of min(d.n_blocks, h_slots) blocks.
 template <class Epi, bool Math>
 int wgmma_launch(const void* x, int n_rows, const void* w, const Epi& epi,
-                 long long blocks, const WgmmaDims& d, void* stream) {
+                 long long blocks, WgmmaDims d, void* hs, int h_slots,
+                 void* stream) {
   if (n_rows < 1 || blocks < 1 || blocks > 0x7fffffffll) return 1002;
-  CUtensorMap xmap;
-  const int bad = encode_x_map(&xmap, x, n_rows, d.c_in);
+  if ((hs != nullptr) != (d.h_width > 0) || (hs && h_slots < 1)) return 1013;
+  d.n_blocks = (int)blocks;
+  CUtensorMap xmap, hmap;
+  int bad = encode_tile_map(&xmap, x, n_rows, d.c_in);
   if (bad) return bad;
+  hmap = xmap;                           // not read in place
+  if (hs) {
+    bad = encode_tile_map(&hmap, hs, (long long)h_slots * 2 * kBM,
+                          d.h_width);
+    if (bad) return bad;
+  }
+  const auto kernel = hs ? wgmma_mlp_kernel<Epi, Math, true>
+                         : wgmma_mlp_kernel<Epi, Math, false>;
+  const size_t smem = hs ? kWgmmaSmemScratch : kWgmmaSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      wgmma_mlp_kernel<Epi, Math>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kWgmmaSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  wgmma_mlp_kernel<Epi, Math><<<(unsigned)blocks, kWgmmaThreads, kWgmmaSmem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      xmap, static_cast<const unsigned char*>(w), epi, d);
+  const unsigned grid =
+      (unsigned)(hs && blocks > h_slots ? h_slots : blocks);
+  kernel<<<grid, kWgmmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xmap, hmap, static_cast<unsigned char*>(hs),
+      static_cast<const unsigned char*>(w), epi, d);
   return (int)cudaGetLastError();
 }
 

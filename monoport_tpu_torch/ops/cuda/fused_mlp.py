@@ -20,13 +20,17 @@ through ctypes (``build.py``). Two dtypes, two routes:
 
 * bf16: one launch a call, one pass over every layer on wgmma, fed by an
   mbarrier ring (weights by bulk copy, x tiles by a TMA tensor map); no
-  scratch. Each 64-point block streams all the packed weights from L2, so
-  L2 bandwidth is this tiling's floor (``stream_wgmma`` measures it). The
-  weights are pre-tiled once, at pack time (``wgmma.tile_stream``), into
-  the order and layout the ring loads.
+  scratch, except for a head the kernel's shared h buffer cannot hold,
+  which runs its scratch mode (``wgmma.needs_scratch``). Each 64-point
+  block streams all the packed weights from L2, so L2 bandwidth is this
+  tiling's floor (``stream_wgmma`` measures it). The weights are pre-tiled
+  once, at pack time (``wgmma.tile_stream``), into the order and layout
+  the ring loads.
 * f32: the parity route on plain FMA (``csrc/mlp_tiles.cuh``: a projection
-  pass into a bounded f32 scratch, then the layer kernel), which wgmma
-  cannot serve (no f32 operands; TF32 would break the 2e-5 parity).
+  pass into a bounded f32 scratch, then the layer kernel, its activations
+  in device memory for a head whose buffers do not fit shared memory:
+  ``f32_scratch``), which wgmma cannot serve (no f32 operands; TF32 would
+  break the 2e-5 parity).
 
 ``apply_mlp`` launches the kernel of the tensor's dtype for CUDA tensors
 and runs ``apply_mlp_plain`` for CPU tensors; any other device raises, and

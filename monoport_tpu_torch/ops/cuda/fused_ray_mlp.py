@@ -22,9 +22,11 @@ in the device code it includes) are CUDA C++ for sm_90a, built with
 * bf16, ``apply_ray``: one launch a call of the wgmma kernel that the
   per-point MLP shares (``csrc/wgmma_mlp.cuh``, ``RayEpilogue``): a row is
   a (ray, tap), ``W_f feat`` is recomputed for each tap, ``z * w_z + b`` is
-  the layer epilogue's f32 term; no scratch. The weights are pre-tiled
-  once, at pack time (``wgmma.tile_stream``); a head the kernel cannot
-  take raises.
+  the layer epilogue's f32 term; no scratch, except for a head the
+  kernel's shared h buffer cannot hold, which runs its scratch mode
+  (``wgmma.needs_scratch``). The weights are pre-tiled once, at pack time
+  (``wgmma.tile_stream``); a head of more than ``wgmma.MAX_LAYERS`` layers
+  raises.
 * bf16, ``apply_anchor``: W_f is linear, so the mix moves ahead of it. The
   weighted-row pass (``csrc/mix_rows.cuh``, ``mix_rows.launch_mix_rows``;
   bound by bytes) writes each tap's mixed anchor row as a row of its own,
@@ -42,6 +44,13 @@ in the device code it includes) are CUDA C++ for sm_90a, built with
   feat`` once a ray and anchor into a bounded f32 scratch, then the layer
   kernel, which mixes the anchors' projections in its epilogue), which
   wgmma cannot serve (no f32 operands; TF32 would break the 2e-5 parity).
+  A head whose two activation buffers do not fit a block's shared memory
+  (``f32_scratch``, decided from the widths) keeps them in a device-memory
+  scratch of ``F32_SLOTS_PER_SM`` blocks an SM instead.
+
+Either route takes any head of up to ``wgmma.MAX_LAYERS`` layers: the bf16
+kernel's in-place or scratch mode, the f32 kernel's shared or device-memory
+activations; nothing falls back to the plain version on the card.
 
 Each wrapper launches its kernels for CUDA tensors and runs its plain
 version (the TPU kernel's rounding points) for CPU tensors; any other
@@ -70,6 +79,31 @@ LIBRARY = "fused_ray_mlp"
 # the f32 scratch of the shared projections is bounded: the launcher walks
 # the rays in chunks that fit it
 XP_SCRATCH_BYTES = 64 << 20
+# the f32 layer kernel (csrc/mlp_tiles.cuh: F32Cfg, mlp_kernel): rows a
+# block, the activation rows' padding, the weight tile's floats
+F32_BM, F32_LD_PAD, F32_SB_FLOATS = 32, 4, 16 * (128 + 4)
+# the shared memory a block may opt into on Hopper (sm_90): the limit of a
+# pack on the CPU; a pack on a card reads its card's
+SMEM_OPTIN = 232_448
+# blocks an SM of the f32 layer kernel when its activations live in the
+# device-memory scratch (its shared memory then holds ~10 KB)
+F32_SLOTS_PER_SM = 2
+
+
+def f32_activation_lds(widths) -> tuple[int, int]:
+    """The f32 layer kernel's two activation row strides (floats): the
+    widest even-index and odd-index layer outputs, padded."""
+    outs = widths[1:]
+    return (max(outs[0::2]) + F32_LD_PAD,
+            max(outs[1::2], default=0) + F32_LD_PAD)
+
+
+def f32_layer_smem(widths, n_anchors: int = MAX_ANCHORS) -> int:
+    """Bytes of shared memory the f32 layer kernel asks for with its
+    activations in shared memory (``launch``'s ``smem_m``)."""
+    ld_a, ld_b = f32_activation_lds(widths)
+    return (4 * (F32_BM * (ld_a + ld_b) + F32_SB_FLOATS) + F32_BM * 8
+            + F32_BM * n_anchors * 4)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,6 +127,17 @@ class RayMlpPacked:
     out_dim: int
     last_op: str | None
     dtype: torch.dtype
+
+    @property
+    def f32_scratch(self) -> bool:
+        """Whether the f32 layer kernel keeps this head's activations in
+        device memory: where its two buffers (at any anchor count) pass
+        the shared memory a block may opt into on the pack's card."""
+        dev = self.wf.device
+        optin = (torch.cuda.get_device_properties(dev).
+                 shared_memory_per_block_optin if dev.type == "cuda"
+                 else SMEM_OPTIN)
+        return f32_layer_smem(self.widths) > optin
 
     @property
     def xoff(self) -> list[int]:
@@ -279,9 +324,18 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
     k = n_anchors or 1
     if not 1 <= k <= MAX_ANCHORS:
         raise ValueError(f"{k} anchors: the kernel takes 1..{MAX_ANCHORS}")
+    if not 1 <= len(p.widths) - 1 <= wgmma.MAX_LAYERS:
+        raise ValueError(f"{len(p.widths) - 1} layers: the kernel takes 1 "
+                         f"to {wgmma.MAX_LAYERS} layers of any width")
     ntot = sum(p.widths[1:])
     xp_rows = max(k, min(n_rays * k, XP_SCRATCH_BYTES // (4 * ntot)))
     xp = torch.empty(xp_rows, ntot, device=dev, dtype=torch.float32)
+    hs, slots = None, 0
+    if p.f32_scratch:
+        slots = min(-(-n_rays * taps // F32_BM),
+                    F32_SLOTS_PER_SM * wgmma.sm_count(dev.index))
+        hs = torch.empty(slots, F32_BM, sum(f32_activation_lds(p.widths)),
+                         device=dev, dtype=torch.float32)
     out = torch.empty(n_rays, taps, p.out_dim, device=dev,
                       dtype=torch.float32)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -293,6 +347,7 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
     if z is not None:
         args.append((ptr, z.data_ptr()))
     args += [(ptr, out.data_ptr()), (ptr, xp.data_ptr()), (i32, xp_rows),
+             (ptr, None if hs is None else hs.data_ptr()), (i32, slots),
              (ptr, p.wf.data_ptr()), (ptr, p.wh.data_ptr()),
              (ptr, p.wz.data_ptr()), (ptr, p.b.data_ptr()),
              (ctypes.POINTER(i32), (i32 * len(p.widths))(*p.widths)),

@@ -2,8 +2,16 @@
 by the per-point MLP (``fused_mlp``, kernel 2) and the ray MLP
 (``fused_ray_mlp``, kernel 1): layer widths at the kernel's instruction
 widths, the weight stream pre-tiled in the order and layout the kernel's
-ring loads, the heads the kernel takes, the bytes it streams, and the
-checked launch.
+ring loads, the heads the kernel takes and in which mode, the bytes it
+streams, and the checked launch.
+
+Two modes of the one kernel, chosen from the kernel widths alone
+(``needs_scratch``): in place, the hidden activations in one [64, 1024]
+shared buffer (every published head); the scratch mode, for a head that
+buffer cannot hold (a hidden layer wider than 1024, or one past the first
+wider than 512), the activations in a device-memory ping-pong scratch of
+[blocks, 2, 64, widest hidden layer] bf16 over a persistent grid of at most
+one block an SM, streamed back through the ring as TMA tiles.
 
 Both kernels walk the same stream: layer i is ``[W_h[i] | W_x[i]]`` over
 ``[h_{i-1} | x]``, where x is the whole input row for the per-point pack and
@@ -15,13 +23,15 @@ w_z) and in what a row is.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
 
-# the kernel's tiling (csrc/wgmma_mlp.cuh)
-BM, BK, PASS_N, MAX_HIDDEN = 64, 32, 512, 1024
+# the kernel's tiling (csrc/wgmma_mlp.cuh); MAX_LAYERS: kMaxLayers
+# (csrc/mlp_tiles.cuh), the layers a head may have on either route
+BM, BK, PASS_N, MAX_HIDDEN, MAX_LAYERS = 64, 32, 512, 1024, 8
 ONE_PASS = (32, 64, 128, 256, PASS_N)
 LAST_OPS = {None: 0, "sigmoid": 1, "tanh": 2}
 
@@ -82,6 +92,19 @@ def tile_stream(p) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple]:
 
 def wgmma_shape_error(widths: tuple) -> str | None:
     """Why the kernel cannot take layers of these kernel widths, or None.
+    In one mode or the other it takes any widths (``kernel_width``'s:
+    32, 64, 128, 256 or a multiple of 512) up to ``MAX_LAYERS`` layers."""
+    if not 1 <= len(widths) <= MAX_LAYERS:
+        return (f"{len(widths)} layers; the kernel takes 1 to {MAX_LAYERS} "
+                f"layers of any width")
+    for i, w in enumerate(widths):
+        if w != kernel_width(w):
+            return f"layer {i} is {w} wide, not a kernel width"
+    return None
+
+
+def inplace_error(widths: tuple) -> str | None:
+    """Why the in-place mode cannot take these kernel widths, or None.
     Hidden outputs live in one [64, 1024] shared buffer, and a hidden layer
     past the first overwrites the h it reads, so it must be one pass (<= 512
     wide)."""
@@ -95,12 +118,38 @@ def wgmma_shape_error(widths: tuple) -> str | None:
     return None
 
 
+def needs_scratch(widths: tuple) -> bool:
+    """Whether a head of these kernel widths runs in the scratch mode: only
+    where the in-place mode refuses it."""
+    return inplace_error(widths) is not None
+
+
+def scratch_width(widths: tuple) -> int:
+    """The scratch mode's row width: the widest hidden layer (0: in
+    place)."""
+    return max(widths[:-1], default=0) if needs_scratch(widths) else 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``: the scratch mode's
+    resident blocks (one an SM)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def streamed_bytes(p, n_rows: int, taps: int = 1) -> int:
     """Bytes the kernel loads into shared memory for n_rows input rows (x
     tiles) of ``taps`` rows of output each: each 64-row block the whole
-    weight stream, and its x tile once for each pass of each layer."""
-    x_passes = sum(max(1, w // PASS_N) for w in p.tile_widths)
-    per_block = p.tiles.numel() * 2 + x_passes * BM * p.widths[0] * 2
+    weight stream, and its x tile once for each pass of each layer; in the
+    scratch mode also the h tiles of every layer past the first, once a
+    pass (the epilogue's h stores, 64 x width x 2 bytes a hidden layer,
+    are not loads)."""
+    w = p.tile_widths
+    passes = [max(1, n // PASS_N) for n in w]
+    per_block = p.tiles.numel() * 2 + sum(passes) * BM * p.widths[0] * 2
+    if needs_scratch(w):
+        per_block += sum(passes[i] * w[i - 1] for i in range(1, len(w))) \
+            * BM * 2
     return -(-n_rows // BM) * taps * per_block
 
 
@@ -133,6 +182,15 @@ def launch(library: str, function: str, p, terms: torch.Tensor,
     n = xr.shape[0]
     shape = (n, p.out_dim) if z is None else (n, z.shape[1], p.out_dim)
     out = torch.empty(shape, device=xr.device, dtype=torch.float32)
+    # the scratch mode's [slots * 2 * 64, h_width] bf16 ping-pong scratch, a
+    # slot a resident block
+    h_width = scratch_width(p.tile_widths)
+    hs, slots = None, 0
+    if h_width:
+        blocks = -(-n // BM) * (1 if z is None else z.shape[1])
+        slots = min(blocks, sm_count(xr.device.index))
+        hs = torch.empty(slots * 2 * BM, h_width, device=xr.device,
+                         dtype=torch.bfloat16)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     args = [(ptr, xr.data_ptr()), (ptr, out.data_ptr()),
             (ptr, p.tiles.data_ptr()), (ptr, terms.data_ptr()),
@@ -141,6 +199,8 @@ def launch(library: str, function: str, p, terms: torch.Tensor,
             (i32, LAST_OPS[p.last_op]), (i32, n)]
     if z is not None:
         args += [(ptr, z.data_ptr()), (i32, z.shape[1])]
+    args += [(ptr, None if hs is None else hs.data_ptr()), (i32, slots),
+             (i32, h_width)]
     with torch.cuda.device(xr.device):
         args.append((ptr, torch.cuda.current_stream(xr.device).cuda_stream))
         fn = build.bind(library, function, [a[0] for a in args])

@@ -109,14 +109,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run(device=None, reps: int = 20, seed: int = 0) -> dict:
-    """Time every path on the card -> {"<shape>_<path>_ms", ..._mrays}.
-    Also checks that in_kernel and index agree to bf16 accuracy (they
-    differ by the table's rounding)."""
+def run(device=None, reps: int = 20, seed: int = 0, chans=CH) -> dict:
+    """Time every path on the card -> {"<shape>_<path>_ms", ..._mrays}
+    for a head of widths ``chans`` (input 257). Also checks that in_kernel
+    and index agree to bf16 accuracy (they differ by the table's
+    rounding)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_gather times the card: it needs CUDA")
-    inputs = make_inputs(seed, dev)
+    inputs = make_inputs(seed, dev, chans)
     out: dict = {}
     for label, fns in paths(inputs).items():
         rays = inputs["shapes"][label]["uv"].shape[1]
@@ -131,6 +132,7 @@ def run(device=None, reps: int = 20, seed: int = 0) -> dict:
             out[f"{label}_{name}_mrays"] = rays / ms / 1e3
             print(label, name, f"{ms:.3f} ms", f"{rays / ms / 1e3:.2f} Mrays/s",
                   flush=True)
+    out["head"] = list(chans)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True, text=True,

@@ -215,7 +215,9 @@ def test_launchers_raise_before_any_build_or_launch(monkeypatch):
     head = make_head("narrow")[0]
     p = tray.pack_ray_mlp_params(head)
     feat_k, w, z = _anchor_inputs(p, 3, rays=5)
-    wide = tray.pack_ray_mlp_params(SurfaceClassifier((65, 1024, 1024, 1)))
+    # nine layers: past kMaxLayers, the one limit either route keeps
+    wide = tray.pack_ray_mlp_params(
+        SurfaceClassifier((65,) + (32,) * 8 + (1,)))
     unpacked = tray.pack_head(head, torch.bfloat16, None, True)
     cases = [
         (lambda: tray._launch_anchor(p, feat_k, w[..., :2], z), "w_taps"),

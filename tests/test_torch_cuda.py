@@ -1,7 +1,9 @@
 """PyTorch port, on the card: the four CUDA MLP kernels (ray, anchored,
 per-point, gathering ray) against their plain versions (f32 atol 2e-5 /
-rtol 1e-4, bf16 atol 2e-2), at the published head widths and a narrow test
-head, T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
+rtol 1e-4, bf16 atol 2e-2), at the published head widths, a narrow test
+head and two wide heads (the bf16 kernel's scratch mode, the f32 route's
+activation scratch; on netG either scratch equals its in-place run bit for
+bit), T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
 beyond the image for the gather, and a scratch small enough that the f32
 launcher walks the rays in several chunks; the bf16 per-point and ray
 kernels are one launch each with no scratch, the bf16 anchored and
@@ -23,9 +25,14 @@ from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
 from monoport_tpu_torch.ops.cuda import mix_rows
 from torch_wgmma_walk import bf16_ulps
 
+# "wide" (WIDE_NETG_HEAD) and "wide_c": heads the in-place bf16 kernel
+# cannot hold, which run its scratch mode and the f32 route's activation
+# scratch
 HEADS = {"netG": ((257, 1024, 512, 256, 128, 1), "sigmoid"),
          "netC": ((513, 1024, 512, 256, 128, 3), "tanh"),
-         "small": ((65, 1024, 512, 256, 128, 1), "sigmoid")}
+         "small": ((65, 1024, 512, 256, 128, 1), "sigmoid"),
+         "wide": ((257, 2048, 1024, 768, 128, 1), "sigmoid"),
+         "wide_c": ((97, 1536, 640, 64, 3), "tanh")}
 TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=0.0)}
 
@@ -440,3 +447,40 @@ def test_bf16_gather_route_is_one_pass_and_one_ray_launch(card):
     assert any("wgmma_mlp_kernel" in n and "RayEpilogue" in n
                for n, _ in ours), ours
     assert any("mix_rows_kernel" in n for n, _ in ours), ours
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scratch_mode_equals_in_place_on_netg(card, dtype, monkeypatch):
+    """The published netG head forced through the scratch modes (bf16: the
+    activations in the device-memory ping-pong, streamed back by TMA; f32:
+    the activation scratch, a persistent grid) gives the in-place run's
+    output bit for bit: the same products in the same order."""
+    from monoport_tpu_torch.ops.cuda import wgmma
+
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=dtype, device=card)
+    pm = tmlp.pack_mlp_params(_head("netG"), dtype=dtype, device=card)
+    rng = np.random.RandomState(12)
+    rays, taps = 5000, 6
+    feat = torch.from_numpy(rng.randn(1, rays, p.c_f).astype(
+        np.float32)).to(card)
+    z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps)).astype(
+        np.float32)).to(card)
+    x = torch.from_numpy(rng.randn(1, 40000, pm.c_f).astype(
+        np.float32)).to(card)
+    k = 3
+    fk = torch.from_numpy(rng.randn(1, rays, k, p.c_f).astype(
+        np.float32)).to(card)
+    w = torch.from_numpy(_hat_weights(rng, rays, taps, k)).to(card)
+    run = lambda: (tray.apply_ray(p, feat, z), tmlp.apply_mlp(pm, x),
+                   tray.apply_anchor(p, fk, w, z))
+    base = run()
+    if dtype == torch.bfloat16:
+        monkeypatch.setattr(wgmma, "needs_scratch", lambda widths: True)
+    else:
+        monkeypatch.setattr(tray.RayMlpPacked, "f32_scratch",
+                            property(lambda self: True))
+    forced = run()
+    torch.cuda.synchronize()
+    for a, b in zip(base, forced):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)

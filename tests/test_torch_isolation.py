@@ -1,8 +1,9 @@
 """PyTorch port, isolation: every module of monoport_tpu_torch (the apps,
 perception, render, host pipeline, the alternative backbones, the
 checkpoint converter, training, the perception nets' training, the mesh,
-the utilities, profiling among them, and the evaluation layer with its
-apps included) and chip_smoke.py import without pulling in jax or
+the utilities, profiling among them, the evaluation layer with its
+apps, the PPL training recipes and the checkpoint and floor-prop apps
+included) and chip_smoke.py import without pulling in jax or
 monoport_tpu, nor matplotlib (checked in a fresh interpreter, since this
 test process has both loaded)."""
 
@@ -52,7 +53,10 @@ assert {"monoport_tpu_torch.apps.rtl_main", "monoport_tpu_torch.apps.infer",
         "monoport_tpu_torch.apps.eval_netc",
         "monoport_tpu_torch.apps.eval_crossfam",
         "monoport_tpu_torch.apps.eval_rotated_anchored",
-        "monoport_tpu_torch.apps.demo_synthetic"} <= set(mods), mods
+        "monoport_tpu_torch.apps.demo_synthetic",
+        "monoport_tpu_torch.apps.train_ppl",
+        "monoport_tpu_torch.apps.convert_model",
+        "monoport_tpu_torch.apps.make_floor_prop"} <= set(mods), mods
 assert not bad, bad
 # utils.plot imports matplotlib inside its function only
 assert "matplotlib" not in sys.modules

@@ -213,8 +213,17 @@ def test_kernel_widths_and_shape_limits():
         [32, 32, 64, 128, 128, 512, 512, 1024, 1024]
     assert wgmma.wgmma_shape_error((1024, 512, 256, 128, 32)) is None
     assert wgmma.wgmma_shape_error((1024, 2048)) is None    # the last: passes
-    assert "layer 0" in wgmma.wgmma_shape_error((2048, 64, 32))
-    assert "hidden layer 1" in wgmma.wgmma_shape_error((1024, 1024, 32))
+    # the in-place mode's limits; the scratch mode takes those heads
+    assert wgmma.inplace_error((1024, 512, 256, 128, 32)) is None
+    assert wgmma.inplace_error((1024, 2048)) is None
+    assert "layer 0" in wgmma.inplace_error((2048, 64, 32))
+    assert "hidden layer 1" in wgmma.inplace_error((1024, 1024, 32))
+    for widths in ((2048, 64, 32), (1024, 1024, 32)):
+        assert wgmma.needs_scratch(widths)
+        assert wgmma.wgmma_shape_error(widths) is None
+    assert not wgmma.needs_scratch((1024, 512, 256, 128, 32))
+    assert "9 layers" in wgmma.wgmma_shape_error((32,) * 9)
+    assert "not a kernel width" in wgmma.wgmma_shape_error((96, 32))
 
 
 def test_wgmma_launcher_checks_raise_before_any_launch(monkeypatch):
@@ -229,7 +238,9 @@ def test_wgmma_launcher_checks_raise_before_any_launch(monkeypatch):
     head = _seeded_head(*FULL_HEADS["narrow"])
     p = tmlp.pack_mlp_params(head)
     xr = torch.zeros(5, p.widths[0], dtype=torch.bfloat16)
-    wide = tmlp.pack_mlp_params(SurfaceClassifier((65, 1024, 1024, 1)))
+    # nine layers: past kMaxLayers, the one limit either route keeps
+    wide = tmlp.pack_mlp_params(
+        SurfaceClassifier((65,) + (32,) * 8 + (1,)))
     cases = [
         (tmlp.pack_mlp_params(head, torch.float32), xr),   # no bf16 tiles
         (tray.pack_ray_mlp_params(head), xr),              # not a point pack

@@ -123,7 +123,9 @@ def test_ray_launcher_checks_raise_before_any_launch(monkeypatch):
     p = tray.pack_ray_mlp_params(head)
     f = torch.zeros(5, p.widths[0], dtype=torch.bfloat16)
     z = torch.zeros(5, 6)
-    wide = tray.pack_ray_mlp_params(SurfaceClassifier((65, 1024, 1024, 1)))
+    # nine layers: past kMaxLayers, the one limit either route keeps
+    wide = tray.pack_ray_mlp_params(
+        SurfaceClassifier((65,) + (32,) * 8 + (1,)))
     cases = [
         (tray.pack_ray_mlp_params(head, torch.float32), f, z),  # f32 pack
         (tray.pack_head(head, torch.bfloat16, None, True), f, z),  # no tiles

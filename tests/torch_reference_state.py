@@ -291,3 +291,37 @@ def soft_netg_state() -> dict:
         -3200.0 * np.maximum(np.abs(z) - 0.3, 0.0))
     state[f"{last}.bias"].fill_(-9.6)
     return state
+
+
+# the wide netG of chip_smoke.py's phase wide_head: the committed netG's
+# HGFilter backbone under a numpy-seeded occupancy head of these widths,
+# which the in-place bf16 kernel cannot hold (a hidden layer over 1024, a
+# hidden layer past the first with two passes, 768 no power of two)
+WIDE_NETG_HEAD = (257, 2048, 1024, 768, 128, 1)
+WIDE_NETG_SEED = 24
+
+
+def wide_netg(device):
+    """The committed netG (``netg_capsule.npz``) with its head replaced by
+    a seeded ``WIDE_NETG_HEAD`` head, on ``device``. As in
+    ``alt_netg_state``, the head's last layer is scaled by 0.05 and takes
+    -8 z_feat with no bias, so that the random head has a surface every
+    ray crosses."""
+    import os
+
+    from monoport_tpu_torch.config import get_cfg_defaults
+    from monoport_tpu_torch.models import MonoPortNet
+    from monoport_tpu_torch.weights import (DATA, _as_state, load_module,
+                                            load_params)
+
+    state = {k: v for k, v in _as_state(load_params(os.path.join(
+        DATA, "netg_capsule.npz"))[0]).items()
+        if not k.startswith("surface_classifier.")}
+    net = MonoPortNet(get_cfg_defaults().netG, head_channels=WIDE_NETG_HEAD)
+    head = seeded_state(net.surface_classifier, WIDE_NETG_SEED)
+    last = f"filters_{len(WIDE_NETG_HEAD) - 2}"
+    head[f"{last}.weight"] *= 0.05
+    head[f"{last}.weight"][:, -1] = -8.0
+    head[f"{last}.bias"].zero_()
+    state.update({f"surface_classifier.{k}": v for k, v in head.items()})
+    return load_module(net, state, device)

@@ -1,8 +1,9 @@
 """Shared helpers of the tests of the bf16 routes
 (tests/test_torch_ray_wgmma.py, tests/test_torch_anchor_wgmma.py,
-tests/test_torch_cuda.py): seeded
-skip-concat heads at the published and a narrow width, ``walk``, the wgmma
-kernel's schedule over its pre-tiled weight stream in plain PyTorch, and
+tests/test_torch_wide_heads.py, tests/test_torch_cuda.py): seeded
+skip-concat heads at the published, a narrow and two wide widths (the
+wide ones run the kernel's scratch mode), ``walk``, the wgmma kernel's
+schedule over its pre-tiled weight stream in plain PyTorch, and
 ``bf16_ulps``. Imports no JAX."""
 
 import numpy as np
@@ -13,9 +14,16 @@ from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
 from monoport_tpu_torch.ops.cuda import wgmma
 from monoport_tpu_torch.ops.cuda.fused_ray_mlp import _activate
 
+# the wide heads: a hidden layer over 1024 (the in-place h buffer's
+# width), a hidden layer past the first with two passes of 512, a width
+# that is no power of two (768 and 640 run at 1024); "wide" is
+# WIDE_NETG_HEAD, chip_smoke's wide netG head
+WIDE_NETG_HEAD = (257, 2048, 1024, 768, 128, 1)
 HEADS = {"netG": ((257, 1024, 512, 256, 128, 1), "sigmoid"),
          "netC": ((513, 1024, 512, 256, 128, 3), "tanh"),
-         "narrow": ((65, 96, 64, 48, 1), "sigmoid")}
+         "narrow": ((65, 96, 64, 48, 1), "sigmoid"),
+         "wide": (WIDE_NETG_HEAD, "sigmoid"),
+         "wide_c": ((97, 1536, 640, 64, 3), "tanh")}
 
 
 def head_params(chans, seed=11):
@@ -66,30 +74,38 @@ def walk(p, tiles, b, wz, widths, feat, z):
     """The kernel's schedule in plain PyTorch, one tap at a time as a block
     runs: the producer's stage order over the stream, A from h or from the
     feature tile, sums in f32, the epilogue ``acc + (z * w_z + b)`` in f32,
-    the activation, h rounded to the operand dtype at its kernel width."""
+    the activation, h rounded to the operand dtype at its kernel width and
+    written after each pass. In place (``wgmma.needs_scratch`` false) h is
+    one buffer that a layer reads and overwrites; in the scratch mode it is
+    two, layer i reading half (i - 1) % 2 and writing half i % 2."""
     xr = tray.pad_feat(p, feat).reshape(-1, p.widths[0])
     zr = z.reshape(xr.shape[0], -1).float()
     c, last, bk = p.widths[0], len(widths) - 1, wgmma.BK
+    halves = 2 if wgmma.needs_scratch(tuple(widths)) else 1
     outs = []
     for t in range(zr.shape[1]):
-        h = torch.zeros(xr.shape[0], max(widths), dtype=p.dtype)
+        h = [torch.zeros(xr.shape[0], max(widths), dtype=p.dtype)
+             for _ in range(halves)]
         pos = boff = 0
         for i, n in enumerate(widths):
             pn = min(n, wgmma.PASS_N)
             nh = widths[i - 1] // bk if i else 0
-            acc = torch.zeros(xr.shape[0], n)
+            src, dst = h[(i - 1) % halves], h[i % halves]
+            v = torch.zeros(xr.shape[0], n)
             for pass_ in range(n // pn):
+                cols = slice(pass_ * pn, (pass_ + 1) * pn)
+                acc = torch.zeros(xr.shape[0], pn)
                 for kt in range(nh + c // bk):
                     w = wgmma.untile_layout(tiles[pos:pos + pn * bk], pn, bk)
                     pos += pn * bk
-                    a = (h[:, kt * bk:(kt + 1) * bk] if kt < nh else
+                    a = (src[:, kt * bk:(kt + 1) * bk] if kt < nh else
                          xr[:, (kt - nh) * bk:(kt - nh + 1) * bk])
-                    cols = slice(pass_ * pn, (pass_ + 1) * pn)
-                    acc[:, cols] += a.float() @ w.float().t()
-            term = zr[:, t:t + 1] * wz[boff:boff + n] + b[boff:boff + n]
-            v = _activate(acc + term, i == last, p.last_op)
+                    acc += a.float() @ w.float().t()
+                term = (zr[:, t:t + 1] * wz[boff + cols.start:boff + cols.stop]
+                        + b[boff + cols.start:boff + cols.stop])
+                v[:, cols] = _activate(acc + term, i == last, p.last_op)
+                if i < last:
+                    dst[:, cols] = v[:, cols].to(p.dtype)
             boff += n
-            if i < last:
-                h[:, :n] = v.to(p.dtype)
         outs.append(v[:, :p.out_dim])
     return torch.stack(outs, 1).reshape(*z.shape, p.out_dim)
