@@ -1,0 +1,65 @@
+"""The system under test: the port's ``ReconEngine`` at a configuration's
+operating point, built from the benchmark's weights. This is the one
+module of the harness that imports the port."""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+_NET_KEYS = ("projection", "backbone", "normalizer", "head", "loss", "mean",
+             "std")
+
+
+def _opt(spec: dict) -> dict:
+    opt = {k: spec[k] for k in _NET_KEYS if k in spec}
+    opt["head"] = {"IMF": spec["head"]["IMF"]}
+    return opt
+
+
+def build_kernels() -> dict:
+    """Compile the port's kernel sources unless the checkout's build
+    directory has them all; -> seconds by source (empty when cached)."""
+    from monoport_tpu_torch.ops.cuda import build
+
+    seconds: dict = {}
+    if not all(os.path.exists(build.library_path(n))
+               for n in build.sources()):
+        build.build_all(seconds)
+    for name in build.sources():
+        build.library(name)
+    return seconds
+
+
+def build_engine(config: dict, states: dict, device):
+    """(engine, seconds to build it)."""
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
+                                           RotatedCfg)
+    from monoport_tpu_torch.recon.hierarchy import HierarchicalRecon
+    from monoport_tpu_torch.weights import build_net
+
+    t0 = time.perf_counter()
+    p = config["profile"]
+    nets = {k: build_net(CN(_opt(config[k])), states[k], device)
+            for k in states}
+    h = p["hierarchy"]
+    recon = HierarchicalRecon(
+        resolutions=tuple(h["resolutions"]), budgets=tuple(h["budgets"]),
+        b_min=tuple(p["b_min"]), b_max=tuple(p["b_max"]),
+        balance_value=p["balance_value"], boundary_tau=h["boundary_tau"],
+        dilate=h["dilate"], select=h["select"])
+    rot = p["rotated"]
+    cfg = EngineCfg(
+        render_size=p["render_size"],
+        compute_dtype=getattr(torch, p["compute_dtype"]),
+        ray=RayCfg(mode=p["mode"], fine_res=p["fine_res"], taps=p["taps"],
+                   window=p["window"], march_levels=tuple(p["march_levels"])),
+        rotated=RotatedCfg(march=rot["march"], compact=rot["compact"],
+                           anchors=rot["anchors"],
+                           anchor_texels=rot["anchor_texels"]))
+    engine = ReconEngine(nets["netG"], nets.get("netC"), recon=recon,
+                         config=cfg, device=device)
+    return engine, time.perf_counter() - t0
