@@ -97,6 +97,7 @@ from .recon.hierarchy import HierarchicalRecon
 from .recon.ray_refine import (_axis_window, _compact_rays, _f32,
                                _sample_grid, _valid_indices, ray_pyramid,
                                ray_refine)
+from .utils import profiling
 from .weights import resolve_device
 
 # Adaptive rotated-compaction budget rungs: frame(compact_hint=...) snaps
@@ -481,17 +482,30 @@ class ReconEngine:
 
     # -- query closures over one frame's features and calib ----------------
     # (under a mesh the per-point and per-ray closures run whole on this
-    # rank's share, the grid closures shard inside, at their heads)
+    # rank's share, the grid closures shard inside, at their heads; each
+    # closure makes a ``profiling.query`` record of the rows it was asked
+    # for, before any sharding)
+    @staticmethod
+    def _recorded(name: str, fn, anchors: int = 0):
+        """``fn`` (inputs [B, R, ...], the second's last axis the taps)
+        with a ``query`` record of its R rows at each call."""
+        def recorded(*arrays):
+            profiling.query(name, arrays[0].shape[1],
+                            arrays[1].shape[-1] if len(arrays) > 1 else 1,
+                            anchors)
+            return fn(*arrays)
+        return recorded
+
     def _query_occ_fn(self, feats, calib):
         def query_occ(pts):
             return self.netG.query(feats, pts, calib, head_fn=self.point_g)[0]
-        return self._shard_rows(query_occ)
+        return self._recorded("query_occ", self._shard_rows(query_occ))
 
     def _query_taps_fn(self, feats, calib):
         def query_taps(xy, z_taps):
             return self.netG.query_taps(feats, xy, z_taps, calib,
                                         head_taps_fn=self.head_g)[..., 0]
-        return self._shard_rows(query_taps)
+        return self._recorded("query_taps", self._shard_rows(query_taps))
 
     def _query_anchored_fn(self, feats, calib, anchors: int):
         """Anchored ray occupancy query of a rotated refine level (the
@@ -501,10 +515,13 @@ class ReconEngine:
             return self.netG.query_taps_anchored(
                 feats, xy, z_taps, calib, anchors=anchors,
                 head_anchor_fn=self.anchor_g)[..., 0]
-        return self._shard_rows(query_anchored)
+        return self._recorded("query_anchored",
+                              self._shard_rows(query_anchored), anchors)
 
     def _query_grid_fn(self, feats, calib):
         def query_grid(xw, yw, wz):
+            profiling.query("query_grid", wz.shape[0] * wz.shape[1],
+                            wz.shape[2])
             return self.netG.query_taps_grid(
                 feats, xw[None], yw[None], wz[None], calib,
                 head_taps_fn=self.grid_g)[0, ..., 0]
@@ -512,6 +529,7 @@ class ReconEngine:
 
     def _grid_color_fn(self, feats, calib):
         def color_grid(xw, yw, zw):
+            profiling.query("color_grid", zw.shape[0] * zw.shape[1])
             return self.netC.query_taps_grid(
                 feats, xw[None], yw[None], zw[None, ..., None], calib,
                 head_taps_fn=self.grid_c)[0, :, :, 0, :]
@@ -521,7 +539,7 @@ class ReconEngine:
         def query_color(pts):
             return self.netC.query(feats, pts, calib,
                                    head_fn=self.point_c)[0].float()
-        return self._shard_rows(query_color)
+        return self._recorded("query_color", self._shard_rows(query_color))
 
     def _texture_canvas(self, maps: SurfaceMaps, resolution: int,
                         color_grid=None, query_color=None,
@@ -671,27 +689,54 @@ class ReconEngine:
         ceiling. The output is identical whenever nothing drops, and drops
         are counted. Ignored on frontal frames and when compaction is
         off."""
-        if calib is None:
-            calib = np.eye(4, dtype=np.float32)[None]
-        if isinstance(calib, torch.Tensor):
-            calib = calib.detach().cpu().numpy()
+        with profiling.span(profiling.FRAME) as root:
+            with profiling.span("engine.plan"):
+                if calib is None:
+                    calib = np.eye(4, dtype=np.float32)[None]
+                if isinstance(calib, torch.Tensor):
+                    calib = calib.detach().cpu().numpy()
+                cfg = self.config
+                use_taps = self._calib_taps_ok(calib)
+                use_grid = self._calib_grid_ok(calib)
+                compact = None if use_taps else cfg.rotated.compact
+                if compact_hint is not None and compact is not None:
+                    compact = _snap_budget(compact_hint, compact)
+                rot_k = () if use_taps else self._rot_anchor_plan(
+                    calib, image_g.shape[1])
+                # a soft-onehot netG has no ray-structured query: its
+                # frontal frame takes the hierarchy and its rotated frame
+                # refines per point
+                ray_g = use_taps and self.head_g is not None
+                march = bool(self.march_levels) and (
+                    ray_g or (not use_taps and cfg.rotated.march))
+                calib_t = upload_async(np.asarray(calib, np.float32),
+                                       self.device)
+            if root is not None:
+                root.attrs.update(path=self._path(use_grid, ray_g, march),
+                                  rung=compact, plan=rot_k)
+            return self._frame(image_g, image_c, calib_t, use_taps,
+                               use_grid, ray_g, march, compact, rot_k)
+
+    def _path(self, use_grid: bool, ray_g: bool, march: bool) -> str:
+        """The frame's path, as its span names it: grid, taps, rotated
+        (the march pyramid by the calib), hierarchy or peel (the volume)."""
+        if not march:
+            return "hierarchy" if self.mode == "ray" else "peel"
+        if not ray_g:
+            return "rotated"
+        return "grid" if use_grid else "taps"
+
+    def _frame(self, image_g, image_c, calib_t, use_taps: bool,
+               use_grid: bool, ray_g: bool, march: bool,
+               compact: Optional[float], rot_k: tuple) -> dict:
+        """``frame`` after its host plan: the backbones, the surface, the
+        shading and the texture, each under its span."""
         cfg = self.config
-        use_taps = self._calib_taps_ok(calib)
-        use_grid = self._calib_grid_ok(calib)
-        compact = None if use_taps else cfg.rotated.compact
-        if compact_hint is not None and compact is not None:
-            compact = _snap_budget(compact_hint, compact)
-        rot_k = () if use_taps else self._rot_anchor_plan(
-            calib, image_g.shape[1])
-
-        calib_t = upload_async(np.asarray(calib, np.float32), self.device)
         dt = self.compute_dtype
-        image_g = image_g.to(device=self.device, dtype=dt)
-        feats_g = self._feats_f32(self.netG.filter(image_g))
+        with profiling.span("backbone.netG"):
+            image_g = image_g.to(device=self.device, dtype=dt)
+            feats_g = self._feats_f32(self.netG.filter(image_g))
 
-        # a soft-onehot netG has no ray-structured query: its frontal frame
-        # takes the hierarchy and its rotated frame refines per point
-        ray_g = use_taps and self.head_g is not None
         if ray_g:
             taps_fns = self._query_taps_fn(feats_g, calib_t)
         elif self.anchor_g is not None and any(rot_k):
@@ -708,8 +753,7 @@ class ReconEngine:
         tex_state: list = []
         vol, counts = None, []
         resolution = self.fine_res
-        if self.march_levels and (ray_g or (not use_taps
-                                            and cfg.rotated.march)):
+        if march:
             # volume-free: no hierarchy, no depth peel, no sdf
             want_state = (cfg.texture.reuse_compact and not use_taps
                           and self.netC is not None and image_c is not None)
@@ -723,8 +767,9 @@ class ReconEngine:
                 compact_state=tex_state if want_state else None,
                 device=self.device)
         else:
-            vol, counts = self.recon(query_occ, return_counts=True,
-                                     device=self.device)
+            with profiling.span("recon.hierarchy"):
+                vol, counts = self.recon(query_occ, return_counts=True,
+                                         device=self.device)
             if self.mode == "ray":
                 # one coarse-to-fine level: the rotated plan has one entry
                 if isinstance(taps_fns, list):
@@ -737,9 +782,12 @@ class ReconEngine:
                     query_taps_fn=taps_fns, query_grid_fn=query_grid)
             else:
                 resolution = self.recon.resolutions[-1]
-                maps = depth_peel(vol, self.direction,
-                                  self.recon.balance_value)
-        render_norm, mask = visualize(shade_normal(maps), self.render_size)
+                with profiling.span("recon.peel"):
+                    maps = depth_peel(vol, self.direction,
+                                      self.recon.balance_value)
+        with profiling.span("render.shade"):
+            render_norm, mask = visualize(shade_normal(maps),
+                                          self.render_size)
         out = {"depth": maps.depth, "valid": maps.valid,
                "render_norm": render_norm, "mask": mask}
         if vol is not None:
@@ -747,24 +795,27 @@ class ReconEngine:
         if counts:
             out["recon_counts"] = torch.stack(counts)
         if self.netC is not None and image_c is not None:
-            image_c = image_c.to(device=self.device, dtype=dt)
-            # the f32 prior promotes the concatenated maps to f32, as in
-            # the JAX engine
-            feat_prior = feats_g[-1][-1]
-            feats_c = self.netC.filter(image_c, feat_prior)
-            if not (cfg.texture.bf16 and not use_taps):
-                feats_c = self._feats_f32(feats_c)
-            if use_grid and self.head_c is not None:
-                tex = self._texture_canvas(
-                    maps, resolution,
-                    color_grid=self._grid_color_fn(feats_c, calib_t))
-            else:
-                tex = self._texture_canvas(
-                    maps, resolution,
-                    query_color=self._query_color_fn(feats_c, calib_t),
-                    compact=compact, telemetry=telemetry,
-                    reuse=tex_state[0] if tex_state else None)
-            render_tex, mask_tex = visualize(tex, self.render_size)
+            with profiling.span("backbone.netC"):
+                image_c = image_c.to(device=self.device, dtype=dt)
+                # the f32 prior promotes the concatenated maps to f32, as
+                # in the JAX engine
+                feat_prior = feats_g[-1][-1]
+                feats_c = self.netC.filter(image_c, feat_prior)
+                if not (cfg.texture.bf16 and not use_taps):
+                    feats_c = self._feats_f32(feats_c)
+            with profiling.span("texture.query"):
+                if use_grid and self.head_c is not None:
+                    tex = self._texture_canvas(
+                        maps, resolution,
+                        color_grid=self._grid_color_fn(feats_c, calib_t))
+                else:
+                    tex = self._texture_canvas(
+                        maps, resolution,
+                        query_color=self._query_color_fn(feats_c, calib_t),
+                        compact=compact, telemetry=telemetry,
+                        reuse=tex_state[0] if tex_state else None)
+            with profiling.span("render.texture"):
+                render_tex, mask_tex = visualize(tex, self.render_size)
             out.update({"render_tex": render_tex, "mask": mask_tex})
         if telemetry:
             out["compact_dropped"] = torch.stack(telemetry)

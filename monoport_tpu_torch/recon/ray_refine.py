@@ -29,6 +29,7 @@ import torch
 from ..ops.compaction import select_k
 from ..ops.constants import device_constant, float_array
 from ..ops.resize import interpolate_2d
+from ..utils import profiling
 from .depth_peel import SurfaceMaps, depth_peel
 
 
@@ -217,7 +218,8 @@ def ray_refine(query_fn: Callable | None, vol_coarse: torch.Tensor,
     in fine voxels along the viewing axis, ``depth_peel``'s convention):
     the coarse volume is peeled into per-ray maps and refined by
     ``refine_from_maps`` (which documents ``window`` and the queries)."""
-    coarse = depth_peel(vol_coarse, direction, balance_value)
+    with profiling.span("recon.peel"):
+        coarse = depth_peel(vol_coarse, direction, balance_value)
     return refine_from_maps(query_fn, coarse, vol_coarse.shape[0], fine_res,
                             taps=taps, balance_value=balance_value,
                             b_min=b_min, b_max=b_max, window=window,
@@ -286,60 +288,62 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
     path only; receives the window geometry (x0/sx/y0/sy, the aw/bw axes
     in fine units, w) with the core's gathered indices and refined
     per-ray depth, for a texture query that reuses this compaction."""
-    rf = fine_res
-    dev = coarse.depth.device
-    scale = (rf - 1) / (rc - 1)
-    depth_f, valid_f = _upsampled_coarse(coarse, rf, scale)
+    with profiling.span("recon.refine", **{"from": rc, "to": fine_res}):
+        rf = fine_res
+        dev = coarse.depth.device
+        scale = (rf - 1) / (rc - 1)
+        depth_f, valid_f = _upsampled_coarse(coarse, rf, scale)
 
-    if window is None or window >= rf:
-        a = torch.arange(rf, dtype=torch.float32, device=dev)
-        return _refine_core(query_fn, depth_f, valid_f, a, a, rf, taps,
-                            scale, balance_value, b_min, b_max,
-                            query_taps_fn=query_taps_fn,
-                            query_grid_fn=query_grid_fn,
-                            compact_budget=_compact_rays(compact, rf, rf),
-                            telemetry=telemetry)
+        if window is None or window >= rf:
+            a = torch.arange(rf, dtype=torch.float32, device=dev)
+            return _refine_core(query_fn, depth_f, valid_f, a, a, rf, taps,
+                                scale, balance_value, b_min, b_max,
+                                query_taps_fn=query_taps_fn,
+                                query_grid_fn=query_grid_fn,
+                                compact_budget=_compact_rays(compact, rf, rf),
+                                telemetry=telemetry)
 
-    x0, sx = _axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
-    y0, sy = _axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
-    ar_w = torch.arange(window, dtype=torch.float32, device=dev)
-    aw = x0 + ar_w * sx
-    bw = y0 + ar_w * sy
-    d_w = _sample_grid(depth_f, aw, bw)
-    v_w = _sample_grid(valid_f.float(), aw, bw) > 0.0
-    core_state: list | None = [] if compact_state is not None else None
-    maps_w = _refine_core(query_fn, d_w, v_w, aw, bw, rf, taps, scale,
-                          balance_value, b_min, b_max, spacing=(sx, sy),
-                          query_taps_fn=query_taps_fn,
-                          query_grid_fn=query_grid_fn,
-                          compact_budget=_compact_rays(compact, window,
-                                                       window),
-                          telemetry=telemetry, compact_state=core_state)
-    if core_state:
-        compact_state.append({**core_state[0], "w": window, "x0": x0,
-                              "sx": sx, "y0": y0, "sy": sy, "aw": aw,
-                              "bw": bw})
+        x0, sx = _axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
+        y0, sy = _axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
+        ar_w = torch.arange(window, dtype=torch.float32, device=dev)
+        aw = x0 + ar_w * sx
+        bw = y0 + ar_w * sy
+        d_w = _sample_grid(depth_f, aw, bw)
+        v_w = _sample_grid(valid_f.float(), aw, bw) > 0.0
+        core_state: list | None = [] if compact_state is not None else None
+        maps_w = _refine_core(query_fn, d_w, v_w, aw, bw, rf, taps, scale,
+                              balance_value, b_min, b_max, spacing=(sx, sy),
+                              query_taps_fn=query_taps_fn,
+                              query_grid_fn=query_grid_fn,
+                              compact_budget=_compact_rays(compact, window,
+                                                           window),
+                              telemetry=telemetry, compact_state=core_state)
+        if core_state:
+            compact_state.append({**core_state[0], "w": window, "x0": x0,
+                                  "sx": sx, "y0": y0, "sy": sy, "aw": aw,
+                                  "bw": bw})
 
-    # resample the refined window back onto the full fine grid (an exact
-    # gather at stride 1); outside the window keep the coarse maps
-    ar = torch.arange(rf, dtype=torch.float32, device=dev)
-    u = (ar - x0) / sx
-    v = (ar - y0) / sy
-    inside = (((u >= 0) & (u <= window - 1))[:, None]
-              & ((v >= 0) & (v <= window - 1))[None, :])
-    uc = torch.clamp(u, 0.0, window - 1)
-    vc = torch.clamp(v, 0.0, window - 1)
-    depth = torch.where(inside, _sample_grid(maps_w.depth, uc, vc), depth_f)
-    norm_fallback = torch.zeros(rf, rf, 3, device=dev)
-    norm_fallback[..., 2] = -1.0
-    norm_w = torch.stack([_sample_grid(maps_w.normal[..., k], uc, vc)
-                          for k in range(3)], dim=-1)
-    norm_w = norm_w / torch.clamp(torch.linalg.vector_norm(
-        norm_w, dim=-1, keepdim=True), min=1e-9)
-    norm = torch.where(inside[..., None], norm_w, norm_fallback)
-    valid_w = _sample_grid(maps_w.valid.float(), uc, vc) > 0.5
-    valid = torch.where(inside, valid_w, valid_f)
-    return SurfaceMaps(depth=depth, normal=norm, valid=valid)
+        # resample the refined window back onto the full fine grid (an exact
+        # gather at stride 1); outside the window keep the coarse maps
+        ar = torch.arange(rf, dtype=torch.float32, device=dev)
+        u = (ar - x0) / sx
+        v = (ar - y0) / sy
+        inside = (((u >= 0) & (u <= window - 1))[:, None]
+                  & ((v >= 0) & (v <= window - 1))[None, :])
+        uc = torch.clamp(u, 0.0, window - 1)
+        vc = torch.clamp(v, 0.0, window - 1)
+        depth = torch.where(inside, _sample_grid(maps_w.depth, uc, vc),
+                            depth_f)
+        norm_fallback = torch.zeros(rf, rf, 3, device=dev)
+        norm_fallback[..., 2] = -1.0
+        norm_w = torch.stack([_sample_grid(maps_w.normal[..., k], uc, vc)
+                              for k in range(3)], dim=-1)
+        norm_w = norm_w / torch.clamp(torch.linalg.vector_norm(
+            norm_w, dim=-1, keepdim=True), min=1e-9)
+        norm = torch.where(inside[..., None], norm_w, norm_fallback)
+        valid_w = _sample_grid(maps_w.valid.float(), uc, vc) > 0.5
+        valid = torch.where(inside, valid_w, valid_f)
+        return SurfaceMaps(depth=depth, normal=norm, valid=valid)
 
 
 def _axis_window(any_valid: torch.Tensor, rc: int, rf: int, scale: float,
@@ -425,9 +429,10 @@ def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
         fns = list(query_taps_fn)
     else:
         fns = [query_taps_fn] * len(levels)
-    maps = ray_march(query_fn, levels[0], balance_value, b_min, b_max,
-                     query_taps_fn=fns[0] if march_taps else None,
-                     query_grid_fn=query_grid_fn, device=device)
+    with profiling.span("recon.march"):
+        maps = ray_march(query_fn, levels[0], balance_value, b_min, b_max,
+                         query_taps_fn=fns[0] if march_taps else None,
+                         query_grid_fn=query_grid_fn, device=device)
     for i, (rc, rl) in enumerate(zip(levels[:-1], levels[1:])):
         maps = refine_from_maps(query_fn, maps, rc, rl, taps=taps,
                                 balance_value=balance_value, b_min=b_min,
