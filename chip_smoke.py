@@ -216,6 +216,17 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     loader worker fails the phase): losses finite and falling, the resume
     exact, none of our kernels launched in a step, the trained nets' bf16
     frame exactly 4 ray-MLP launches.
+20. graphs (after phase 5): the backbone calls replayed from CUDA graphs
+    (``backbone_graphs``), on the committed hg4 nets and the seeded
+    multi-level HRNet netG of phase 12, each in a bf16 real-time engine
+    of its own (``frame_check.replay_check``): frontal frames of the
+    golden image, its mirror and the image again, each backbone call
+    (netG; netC over the prior it was given) bit-equal to the eager call
+    on its inputs; the frontal and the rotated frame bit-equal to the same
+    frame with the graphs off; one capture a signature; no stream sync in
+    a replaying frame. Phase 11 also holds the served engine's backbone
+    calls to one capture a signature and replays after (the capture runs
+    in the device stage's thread).
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -932,6 +943,47 @@ def rotated_expect(plan: tuple) -> dict:
     return {"fused_ray_mlp": 0, "fused_gather_mlp": 0,
             "fused_mlp": 1 + sum(1 for k in plan if not k),
             "fused_anchor_mlp": anchored, "mix_rows": anchored}
+
+
+def graphs_phase(netG, netC, card: str) -> None:
+    """Phase 20: the backbone graphs against the eager calls, hg4 and the
+    multi-level HRNet netG."""
+    import torch
+
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.weights import build_net
+
+    helper = reference_helper()
+    imf = "HRNetV2_W18_small_v2"
+    hrnet = build_net(CN(helper.alt_netg_opts(imf)),
+                      helper.alt_netg_state(imf), "cuda")
+    image = torch.from_numpy(frame_check.load_golden()["image"]).cuda()
+    calib = frame_check.rotated_calib()
+    for name, g, c in (("hg4", netG, netC), (imf, hrnet, None)):
+        recon, cfg = frame_check.rtl_config(torch.bfloat16)
+        eng = ReconEngine(g, c, recon=recon, config=cfg)
+        res = frame_check.replay_check(
+            eng, [image, torch.flip(image, dims=(2,)), image], [None, calib])
+        syncs = find_syncs(lambda: eng.frame(image, image, calib))
+        torch.cuda.synchronize()
+        nets = ["netG"] if c is None else ["netG", "netC"]
+        emit({"phase": "graphs", "nets": name, **res,
+              "replay_syncs": len(syncs), "card": card})
+        if not res["ok"]:
+            fail(f"{name}: a replayed backbone call or frame differs from "
+                 f"the eager one: {res}")
+        if res["signatures"] != len(nets) or any(
+                res["counts"][n]["capture"] != 1 for n in nets):
+            fail(f"{name}: captures {res['counts']} over "
+                 f"{res['signatures']} signatures, expected one a net")
+        if syncs:
+            fail(f"{name}: a replaying frame synchronised the stream at "
+                 f"{syncs}")
+        del eng
+    del hrnet
+    torch.cuda.empty_cache()
 
 
 def frame_phases(netG, netC, counters: dict, card: str) -> dict:
@@ -2009,6 +2061,12 @@ def serve_phase(counters: dict, card: str) -> dict:
         if launches != expect:
             fail(f"the served frames launched {launches}, their poses' "
                  f"plans imply {expect}")
+        graphs = {k: dict(v) for k, v in eng.graphs.counts.items()}
+        if any(v["eager"] or v["capture"] + v["replay"] != n
+               for v in graphs.values()) or len(eng.graphs._graphs) != sum(
+                   v["capture"] for v in graphs.values()):
+            fail(f"the served engine's backbone calls by mode {graphs}, "
+                 f"{len(eng.graphs._graphs)} signatures")
         segment, device_frame, _ = pipeline.processors
         d = segment(frame)
         torch.cuda.synchronize()
@@ -2058,7 +2116,7 @@ def serve_phase(counters: dict, card: str) -> dict:
           "jpeg_ms_median": statistics.median(d["jpeg_ms"] for d in served),
           "jpeg_bytes": len(parts[0]), "anchor_plans": plans,
           "launches": launches, "launches_expected": expect,
-          "device_stage_syncs": len(syncs),
+          "device_stage_syncs": len(syncs), "backbone_graphs": graphs,
           "matte_max_diff": matte, "bbox": box,
           "golden_bbox": golden["bbox"].tolist(), **res,
           "limits": limits._asdict(), "card": card})
@@ -3156,6 +3214,7 @@ def main() -> int:
                 "fused_gather_mlp": tgather.apply_gather_ray,
                 "mix_rows": mix_rows.launch_mix_rows}
     launches, frontal = frame_phases(netG, netC, counters, card)
+    graphs_phase(netG, netC, card)
     for name, n in dense_phases(netG, netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in softonehot_phase(netC, counters, card).items():

@@ -71,6 +71,15 @@ accumulation. The head operands are packed once, at construction. f32
 parity with the JAX package (which pins full f32 precision) needs TF32
 off on the card: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False, as ``chip_smoke.py`` sets them.
+
+On the card each backbone call (netG's ``filter`` and upcast, netC's
+``filter`` over the prior and its upcast) is captured into a CUDA graph in
+the first frame of its signature and replayed in every later one
+(``backbone_graphs.py``): one input copy and one graph launch where the
+eager call launches ~1,000 kernels, bit-equal to it. Its span carries
+``graph`` = ``capture`` | ``replay`` | ``eager``, and ``self.graphs.counts``
+counts each net's calls by mode. The outputs are graph-pool tensors that
+the next frame overwrites; no output of ``frame`` aliases them.
 """
 
 from __future__ import annotations
@@ -84,6 +93,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .backbone_graphs import BackboneGraphs
 from .config import CN
 from .models import MonoPortNet
 from .ops.constants import upload_async
@@ -324,6 +334,9 @@ class ReconEngine:
         # the grid queries' heads take this rank's share of the rays
         self.grid_g = self._shard_rows(self.head_g)
         self.grid_c = self._shard_rows(self.head_c)
+        # the backbone calls, replayed from a CUDA graph a signature on
+        # the card (each rank of a mesh captures its own)
+        self.graphs = BackboneGraphs(self.device)
 
     def _shard_rows(self, fn):
         """``fn`` (tensors [B, R, ...] -> a tensor [B, R, ...], a map over
@@ -412,6 +425,12 @@ class ReconEngine:
         if self.compute_dtype == torch.float32:
             return feats
         return [[f.float() for f in fs] for fs in feats]
+
+    def _filter_g(self, image):
+        return self._feats_f32(self.netG.filter(image))
+
+    def _filter_c_f32(self, image, prior):
+        return self._feats_f32(self.netC.filter(image, prior))
 
     def _refine_pairs(self) -> list:
         """(rc, rf) resolution pairs of the refine levels a rotated frame
@@ -733,9 +752,12 @@ class ReconEngine:
         shading and the texture, each under its span."""
         cfg = self.config
         dt = self.compute_dtype
-        with profiling.span("backbone.netG"):
-            image_g = image_g.to(device=self.device, dtype=dt)
-            feats_g = self._feats_f32(self.netG.filter(image_g))
+        with profiling.span("backbone.netG") as sp:
+            feats_g, mode = self.graphs.run(
+                "netG", self._filter_g, (image_g,), (dt,),
+                upcast=dt != torch.float32)
+            if sp is not None:
+                sp.attrs["graph"] = mode
 
         if ray_g:
             taps_fns = self._query_taps_fn(feats_g, calib_t)
@@ -795,14 +817,17 @@ class ReconEngine:
         if counts:
             out["recon_counts"] = torch.stack(counts)
         if self.netC is not None and image_c is not None:
-            with profiling.span("backbone.netC"):
-                image_c = image_c.to(device=self.device, dtype=dt)
+            with profiling.span("backbone.netC") as sp:
                 # the f32 prior promotes the concatenated maps to f32, as
                 # in the JAX engine
                 feat_prior = feats_g[-1][-1]
-                feats_c = self.netC.filter(image_c, feat_prior)
-                if not (cfg.texture.bf16 and not use_taps):
-                    feats_c = self._feats_f32(feats_c)
+                upcast = not (cfg.texture.bf16 and not use_taps)
+                feats_c, mode = self.graphs.run(
+                    "netC", self._filter_c_f32 if upcast else self.netC.filter,
+                    (image_c, feat_prior), (dt, feat_prior.dtype),
+                    upcast=upcast and dt != torch.float32)
+                if sp is not None:
+                    sp.attrs["graph"] = mode
             with profiling.span("texture.query"):
                 if use_grid and self.head_c is not None:
                     tex = self._texture_canvas(

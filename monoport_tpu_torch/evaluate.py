@@ -199,8 +199,8 @@ def ray_vs_dense(engine: ReconEngine, image: torch.Tensor, calib=None,
         calib = np.eye(4, dtype=np.float32)[None]
     if out is None:
         out = engine.frame(image, None, calib)
-    feats = engine._feats_f32(engine.netG.filter(
-        image.to(device=engine.device, dtype=engine.compute_dtype)))
+    feats = engine._filter_g(
+        image.to(device=engine.device, dtype=engine.compute_dtype))
     calib_t = torch.as_tensor(np.asarray(calib, np.float32),
                               device=engine.device)
     dense = HierarchicalRecon(resolutions=DENSE_RESOLUTIONS,

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .backbone_graphs import leaves
 from .config import get_cfg_defaults
 from .engine import EngineCfg, RayCfg
 from .recon.calib import pifu_calib
@@ -230,6 +231,52 @@ def compare_sdf(out: dict, golden: dict, atol: float = 2e-3,
     res["ok"] = bool(res["sdf_within"] >= within_min
                      and np.isfinite(err).all())
     return res
+
+
+def replay_check(eng, images, calibs) -> dict:
+    """The engine's backbone graphs (``backbone_graphs``) against its eager
+    calls, bit for bit. First a frontal frame of each image in turn
+    (the first captures, the rest replay; a change of image between
+    replays tests the input copy), each backbone call's outputs held to
+    the eager call on the same inputs (netC on the prior it was given);
+    then a frame of the first image at each calib, the graphs on against
+    the same frame with them off. -> {'calls': [(net, mode, equal)],
+    'frames': [{output: equal}], 'ok', 'counts', 'signatures'}."""
+    graphs = eng.graphs
+    run = graphs.run
+    calls = []
+
+    def held_to_eager(net, fn, inputs, dtypes, upcast):
+        out, mode = run(net, fn, inputs, dtypes, upcast)
+        want = fn(*(t.to(device=eng.device, dtype=d)
+                    for t, d in zip(inputs, dtypes)))
+        calls.append((net, mode, all(torch.equal(a, b) for a, b in zip(
+            leaves(out), leaves(want)))))
+        return out, mode
+
+    graphs.run = held_to_eager
+    try:
+        for image in images:
+            eng.frame(image, image)
+    finally:
+        del graphs.run
+    frames = []
+    capturable = graphs.capturable
+    for calib in calibs:
+        try:
+            graphs.capturable = False
+            want = eng.frame(images[0], images[0], calib)
+        finally:
+            graphs.capturable = capturable
+        for _ in range(2):  # a new signature captures, then replays
+            got = eng.frame(images[0], images[0], calib)
+            frames.append({k: bool(torch.equal(got[k], want[k]))
+                           for k in want})
+    ok = (all(c[2] for c in calls)
+          and all(all(f.values()) for f in frames))
+    return {"calls": calls, "frames": frames, "ok": ok,
+            "counts": {k: dict(v) for k, v in graphs.counts.items()},
+            "signatures": len(graphs._graphs)}
 
 
 # the f32 backbone against its golden: the largest error of a level over

@@ -5,23 +5,50 @@ constant built in numpy and copied on every frame (an interpolation
 matrix, a tap offset vector) would stall the host behind the device at
 each copy. ``device_constant`` uploads each one once per (arguments,
 device, dtype); callers must not write to the tensors it returns.
+
+A CUDA graph reads a constant at the address it had at capture, after the
+cache may have dropped it; ``held`` lists the constants handed out inside
+a block, for the graph's owner to keep.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
+_HOLDERS: list = []          # the lists of the ``held`` blocks open
+
 
 @functools.lru_cache(maxsize=256)
+def _uploaded(build: Callable[..., np.ndarray], args: tuple,
+              device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(build(*args), device=device).to(dtype)
+
+
 def device_constant(build: Callable[..., np.ndarray], args: tuple,
                     device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``build(*args)`` as a tensor on ``device`` (``build`` is a module-level
     function, so the cache key is stable)."""
-    return torch.as_tensor(build(*args), device=device).to(dtype)
+    t = _uploaded(build, args, device, dtype)
+    for keep in _HOLDERS:
+        keep.append(t)
+    return t
+
+
+@contextlib.contextmanager
+def held() -> Iterator[list]:
+    """A list of every constant ``device_constant`` hands out inside the
+    block, on any thread."""
+    keep: list = []
+    _HOLDERS.append(keep)
+    try:
+        yield keep
+    finally:
+        _HOLDERS.remove(keep)
 
 
 def float_array(values) -> np.ndarray:

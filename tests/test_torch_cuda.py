@@ -9,6 +9,10 @@ launcher walks the rays in several chunks; the bf16 per-point and ray
 kernels are one launch each with no scratch, the bf16 anchored and
 gathering routes one weighted-row pass and one wgmma launch each, and the
 pass (``csrc/mix_rows.cuh``) equals ``mix_rows_plain`` within one bf16 ulp.
+The engine's backbone graphs (``backbone_graphs``) on the committed hg4
+nets and the seeded HRNet netG: replayed netG and netC features, after a
+change of image too, and whole frontal and rotated frames bit-equal to
+the eager calls (``frame_check.replay_check``), one capture a signature.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -484,3 +488,39 @@ def test_scratch_mode_equals_in_place_on_netg(card, dtype, monkeypatch):
     torch.cuda.synchronize()
     for a, b in zip(base, forced):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def _graph_nets(config: str, card):
+    """(netG, netC) of a benchmark configuration: the committed hg4 nets,
+    or the seeded HRNet netG (BatchNorm, no netC)."""
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.weights import build_net, load_default_networks
+    from torch_reference_state import alt_netg_opts, alt_netg_state
+
+    if config == "hg4":
+        return load_default_networks(card)
+    imf = "HRNetV2_W18_small_v2"
+    return build_net(CN(alt_netg_opts(imf)), alt_netg_state(imf), card), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["hg4", "hrnet"])
+def test_replayed_backbones_and_frames_equal_eager(card, config):
+    from monoport_tpu_torch import frame_check
+    from monoport_tpu_torch.engine import ReconEngine
+
+    netG, netC = _graph_nets(config, card)
+    recon, cfg = frame_check.rtl_config(torch.bfloat16)
+    eng = ReconEngine(netG, netC, recon=recon, config=cfg)
+    image = torch.from_numpy(frame_check.load_golden()["image"]).to(card)
+    other = torch.flip(image, dims=(2,))
+    res = frame_check.replay_check(eng, [image, other, image],
+                                   [None, frame_check.rotated_calib()])
+    torch.cuda.synchronize()
+    assert res["ok"], res
+    nets = ["netG"] if netC is None else ["netG", "netC"]
+    assert [c[:2] for c in res["calls"]] == (
+        [(n, "capture") for n in nets] + [(n, "replay") for n in nets] * 2)
+    assert res["signatures"] == len(nets)
+    for n in nets:
+        assert res["counts"][n]["capture"] == 1

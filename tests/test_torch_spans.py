@@ -9,14 +9,28 @@ root's path / rung / plan against the engine's own host rules, each
 query's rows against the query shapes the profile implies, a frame with
 no recorder (nothing recorded, no clock read, outputs bit-equal to a
 recorded frame's), one stack a thread, and the stamps on the profiler's
-clock."""
+clock.
 
+The backbone graphs (``backbone_graphs``): on the CPU every backbone call
+runs eagerly (``graph="eager"``) with the nets' own outputs; the
+signature separates the nets, the upcast choices, image shapes and a
+prior, and pins a graph output by address; no frame output aliases a
+backbone output. Capture and replay run on the CPU through a fake CUDA
+graph (each ATen op recorded at capture and run again, in place, at
+replay): replayed features and whole frames bit-equal to the eager ones,
+after a change of image too, one capture a signature, a failed capture
+eager from then on."""
+
+import contextlib
 import threading
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
+from monoport_tpu_torch import backbone_graphs
 from monoport_tpu_torch import engine as tengine
 from monoport_tpu_torch.config import CN
 from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
@@ -231,3 +245,266 @@ def test_spans_land_on_the_profilers_clock():
         ends.append(r.start_ns() + r.duration_ns() - s.end_ns)
     assert abs(float(np.median(starts))) < 100e3, starts
     assert abs(float(np.median(ends))) < 100e3, ends
+
+
+# -- the backbone graphs (backbone_graphs.py) --------------------------------
+class _FakeGraph:
+    """A CUDA graph's semantics on the CPU: the capture records each ATen op
+    with its argument and output tensors, and a replay runs them again in
+    order, writing into the recorded outputs, so a replay reads and writes
+    the capture's tensors at their addresses, as a CUDA graph does."""
+
+    def __init__(self):
+        self.ops = []
+        self.replays = 0
+
+    def replay(self):
+        for func, args, kwargs, out in self.ops:
+            res = func(*args, **kwargs)
+            for o, r in zip(tree_leaves(out), tree_leaves(res)):
+                if isinstance(o, torch.Tensor):
+                    o.copy_(r)
+        self.replays += 1
+
+
+class _Record(TorchDispatchMode):
+    def __init__(self, ops: list):
+        super().__init__()
+        self.ops = ops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops.append((func, args, kwargs or {}, out))
+        return out
+
+
+@pytest.fixture
+def fake_cuda_graphs(monkeypatch):
+    """``torch.cuda``'s graph capture and replay emulated on the CPU; ->
+    the list of the fake graphs captured, each with its capture mode."""
+    graphs = []
+
+    @contextlib.contextmanager
+    def capture(graph, capture_error_mode="global"):
+        graph.mode = capture_error_mode
+        graphs.append(graph)
+        with _Record(graph.ops):
+            yield
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", capture)
+    return graphs
+
+
+def _graphed(eng):
+    """``eng`` with its backbone calls captured and replayed (the card's
+    path) through the fixture's fake graphs."""
+    eng.graphs.capturable = True
+    return eng
+
+
+def _collect_backbone_outputs(eng):
+    """Wrap ``eng.graphs.run``; -> the list its outputs go to."""
+    seen = []
+    run = eng.graphs.run
+
+    def recorded(*args, **kwargs):
+        out, mode = run(*args, **kwargs)
+        seen.extend(tree_leaves(out))
+        return out, mode
+
+    eng.graphs.run = recorded
+    return seen
+
+
+def _assert_outputs_equal(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("calib", [None, INPLANE_CALIB, ROT_CALIB],
+                         ids=["frontal", "inplane", "rotated"])
+def test_cpu_backbone_spans_are_eager(nets, calib):
+    """On the CPU every backbone call runs eagerly (span attribute
+    ``graph="eager"``, the engine's counts), and its features are the nets'
+    own ``filter`` outputs, so the frame is the frame of the plain calls."""
+    eng = _engine(nets)
+    image = nets[2]
+    seen = _collect_backbone_outputs(eng)
+    rec, outs = _recorded(eng, nets, calib, frames=2)
+    modes = [(s.name, s.attrs) for s in rec.spans
+             if s.name.startswith("backbone.")]
+    assert modes == [("backbone.netG", {"graph": "eager"}),
+                     ("backbone.netC", {"graph": "eager"})] * 2
+    assert eng.graphs.counts == {
+        "netG": {"capture": 0, "replay": 0, "eager": 2},
+        "netC": {"capture": 0, "replay": 0, "eager": 2}}
+    with torch.no_grad():
+        feats_g = eng.netG.filter(image)
+        want = tree_leaves(feats_g) + tree_leaves(
+            eng.netC.filter(image, feats_g[-1][-1]))
+    assert len(seen) == 2 * len(want)
+    for got, w in zip(seen, want + want):
+        assert torch.equal(got, w)
+    _assert_outputs_equal(outs[1], outs[0])
+
+
+def _key(net="netG", shape=(1, 64, 64, 3), upcast=True, prior=None,
+         pinned=None):
+    inputs = [torch.zeros(shape)] + ([] if prior is None else [prior])
+    return backbone_graphs.signature(net, inputs, upcast, pinned)
+
+
+@pytest.mark.parametrize("other", [
+    dict(net="netC"), dict(upcast=False), dict(shape=(1, 128, 128, 3)),
+    dict(shape=(1, 64, 64, 3), prior=torch.zeros(1, 16, 16, 8)),
+    dict(shape=(1, 64, 48, 3))])
+def test_signature_separates_calls(other):
+    """The net, the upcast choice, the image shape and a prior each give a
+    call of its own; the same call gives the same key."""
+    assert _key() == _key()
+    assert _key(**other) != _key()
+
+
+def test_signature_pins_a_graph_output_by_address():
+    """An input that is one of the graphs' outputs (netC's prior) is keyed
+    by its address, another tensor of its shape by none."""
+    prior = torch.zeros(1, 16, 16, 8)
+    other = torch.zeros(1, 16, 16, 8)
+    pinned = {prior.data_ptr(): prior}
+    key = _key(net="netC", prior=prior, pinned=pinned)
+    assert key[-1] == ((1, 16, 16, 8), torch.float32, prior.data_ptr())
+    assert _key(net="netC", prior=other, pinned=pinned)[-1][2] is None
+    assert _key(net="netC", prior=prior)[-1][2] is None
+
+
+@pytest.mark.parametrize("mode,march,calib", [
+    ("ray", LEVELS, None), ("ray", LEVELS, ROT_CALIB),
+    ("ray", None, None), ("dense", None, None)],
+    ids=["frontal", "rotated", "hierarchy", "dense"])
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_no_frame_output_aliases_a_backbone_output(nets, mode, march, calib,
+                                                   graphed,
+                                                   fake_cuda_graphs):
+    """The backbone outputs are a graph's static tensors, overwritten by
+    the next frame: no tensor of ``frame``'s output shares memory with
+    one."""
+    eng = _engine(nets, mode=mode, march=march)
+    if graphed:
+        _graphed(eng)
+    image = nets[2]
+    seen = _collect_backbone_outputs(eng)
+    outs = [eng.frame(image, image, calib) for _ in range(2)]
+    spans = [(t.untyped_storage().data_ptr(),
+              t.untyped_storage().nbytes()) for t in seen]
+    for out in outs:
+        for k, v in out.items():
+            p, n = v.untyped_storage().data_ptr(), v.untyped_storage().nbytes()
+            assert all(p + n <= a or a + m <= p for a, m in spans), k
+
+
+def test_replayed_backbones_equal_eager_filter(nets, fake_cuda_graphs):
+    """One capture a signature, replays after; netG's and netC's replayed
+    features equal eager ``filter`` on the same image bit for bit, also
+    after the image changes to another body (the input copy), and netC
+    reads netG's last map in place (no buffer for its prior)."""
+    eng = _graphed(_engine(nets))
+    image = nets[2]
+    other = torch.rand(1, 64, 64, 3,
+                       generator=torch.Generator().manual_seed(2))
+    runs = []
+    run = eng.graphs.run
+
+    def recorded(*args, **kwargs):
+        out, mode = run(*args, **kwargs)
+        runs.append((args[0], mode, [t.clone() for t in tree_leaves(out)]))
+        return out, mode
+
+    eng.graphs.run = recorded
+    for img in (image, other, image):
+        eng.frame(img, img)
+    assert [(n, m) for n, m, _ in runs] == [
+        ("netG", "capture"), ("netC", "capture"), ("netG", "replay"),
+        ("netC", "replay"), ("netG", "replay"), ("netC", "replay")]
+    assert len(fake_cuda_graphs) == 2
+    assert {g.mode for g in fake_cuda_graphs} == {"thread_local"}
+    assert [g.replays for g in fake_cuda_graphs] == [3, 3]
+    with torch.no_grad():
+        for k, img in enumerate((image, other, image)):
+            feats_g = eng.netG.filter(img)
+            want = [tree_leaves(feats_g), tree_leaves(
+                eng.netC.filter(img, feats_g[-1][-1]))]
+            for (_, _, got), w in zip(runs[2 * k:2 * k + 2], want):
+                assert len(got) == len(w)
+                for a, b in zip(got, w):
+                    assert torch.equal(a, b)
+    graph_c = eng.graphs._graphs[next(k for k in eng.graphs._graphs
+                                      if k[0] == "netC")]
+    assert graph_c.copied == [True, False]
+    assert eng.graphs.counts == {
+        "netG": {"capture": 1, "replay": 2, "eager": 0},
+        "netC": {"capture": 1, "replay": 2, "eager": 0}}
+
+
+@pytest.mark.parametrize("calib", [None, ROT_CALIB],
+                         ids=["frontal", "rotated"])
+def test_replayed_frame_equals_eager_frame(nets, calib, fake_cuda_graphs):
+    """A frame whose backbones replay is the eager frame bit for bit, in the
+    frontal view and a rotated one; its spans read capture, then replay."""
+    image = nets[2]
+    eager = _engine(nets)
+    want = [eager.frame(image, image, calib, compact_hint=0.3)
+            for _ in range(2)]
+    eng = _graphed(_engine(nets))
+    with profiling.recording() as rec:
+        got = [eng.frame(image, image, calib, compact_hint=0.3)
+               for _ in range(2)]
+    for g, w in zip(got, want):
+        _assert_outputs_equal(g, w)
+    assert [s.attrs["graph"] for s in rec.spans
+            if s.name.startswith("backbone.")] == [
+        "capture", "capture", "replay", "replay"]
+
+
+def test_failed_capture_stays_eager(nets, fake_cuda_graphs, monkeypatch):
+    """A signature whose capture fails warns once and runs eagerly from
+    then on, with the eager frame's outputs."""
+    image = nets[2]
+    want = _engine(nets).frame(image, image)
+
+    @contextlib.contextmanager
+    def refused(graph, capture_error_mode="global"):
+        with _Record(graph.ops):
+            yield
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+
+    monkeypatch.setattr(torch.cuda, "graph", refused)
+    eng = _graphed(_engine(nets))
+    with pytest.warns(UserWarning, match="capture failed"):
+        got = eng.frame(image, image)
+    _assert_outputs_equal(got, want)
+    _assert_outputs_equal(eng.frame(image, image), want)
+    assert eng.graphs.counts == {
+        "netG": {"capture": 0, "replay": 0, "eager": 2},
+        "netC": {"capture": 0, "replay": 0, "eager": 2}}
+
+
+def test_replay_check_passes_on_fake_graphs(nets, fake_cuda_graphs):
+    """``frame_check.replay_check``, the card's check of the graphs, on
+    the emulated ones: every call and frame equal, a capture a
+    signature."""
+    from monoport_tpu_torch import frame_check
+
+    image = nets[2]
+    other = torch.flip(image, dims=(2,))
+    res = frame_check.replay_check(_graphed(_engine(nets)), [image, other],
+                                   [None, ROT_CALIB])
+    assert res["ok"], res
+    assert [c[:2] for c in res["calls"]] == [
+        ("netG", "capture"), ("netC", "capture"),
+        ("netG", "replay"), ("netC", "replay")]
+    assert len(res["frames"]) == 4
+    assert res["signatures"] == len(fake_cuda_graphs)
+    assert res["counts"]["netG"]["capture"] == 1
