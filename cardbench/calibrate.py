@@ -1,24 +1,30 @@
 """The readings the comparison's limits are set from, on the card: for
 each seed, one cell's run up to its check (set-up, warm-up, a window of
-``--seconds``), then its checked frames read four ways against the plain
-f32 reference of the same inputs:
+``--seconds``), then its checked frames read several ways against the
+plain f32 reference of the same inputs:
 
 * ``program``: the window's frames (the configuration's compute dtype):
   the lower reading;
-* ``control``: the reference with every convolution and linear layer on
-  float8 e4m3 (``reference.frame.quantize_fp8``), one precision step below
-  the configuration's bf16: the upper reading;
-* ``program_f32``: the port's engine in f32 on the same inputs, a second
-  witness of the reference (read at tolerances of 1e-3);
-* ``stale`` (each checked frame answered with the one checked before it)
-  and ``shifted`` (the depth moved by two fine voxels where it is
-  produced): planted faults.
+* ``control``: the reference one precision step below the configuration
+  (``reference.frame.control_nets``): every convolution and linear layer
+  on float8 e4m3 under a bf16 configuration, on TF32 under a float32 one:
+  the upper reading;
+* under bf16, ``program_f32``: the port's engine in f32 on the same
+  inputs, a second witness of the reference (read at tolerances of 1e-3);
+* under float32, ``program_bf16``: the port's engine in bf16 on the same
+  inputs, and ``control_fp8``: the reference on float8 e4m3; two more
+  upper readings;
+* ``stale`` (each checked frame answered with the one checked before it),
+  ``shifted`` (the depth moved by two fine voxels where it is produced)
+  and ``empty`` (no silhouette at all): planted faults.
 
     python3 cardbench/calibrate.py --workload <name> --seeds 1,2,3 \
         --seconds 8
 
-One JSON line a seed, then the summary: the largest ``program`` and
-``program_f32`` shares and the smallest ``control`` and fault shares.
+The sample keeps enough window frames for the limits file's ``frames``
+at any ``--seconds`` (``cell.keep_block``). One JSON line a seed, then
+the summary: the largest ``program`` and witness shares and the smallest
+control and fault shares, at the limits file's tolerances.
 """
 
 from __future__ import annotations
@@ -37,8 +43,12 @@ import torch  # noqa: E402
 from cardbench.harness import card, compare, program  # noqa: E402
 from cardbench.harness.cell import Cell  # noqa: E402
 from cardbench.harness.manifest import Manifest  # noqa: E402
+from cardbench.reference.frame import (load_nets, quantize_fp8,  # noqa: E402
+                                       reference_frame)
 
-KINDS = ("program", "control", "program_f32", "stale", "shifted")
+# the port's engine at the other dtype, by the configuration's
+WITNESS = {"bfloat16": ("float32", "program_f32"),
+           "float32": ("bfloat16", "program_bf16")}
 
 
 def readings(manifest, workload: str, seed: int, seconds: float,
@@ -49,12 +59,28 @@ def readings(manifest, workload: str, seed: int, seconds: float,
     cell.prepare_sample(seconds)
     win = cell.window(seconds)
     cell.free_program()
-    config32 = copy.deepcopy(cell.config)
-    config32["profile"]["compute_dtype"] = "float32"
-    eng32, _ = program.build_engine(config32, cell.states, cell.device)
+    dtype, witness = WITNESS[cell.config["profile"]["compute_dtype"]]
+    config_w = copy.deepcopy(cell.config)
+    config_w["profile"]["compute_dtype"] = dtype
+    eng_w, _ = program.build_engine(config_w, cell.states, cell.device)
     ref, ctrl = cell.reference(), cell.reference(control=True)
+    others = {}
+    if dtype == "bfloat16":
+        others["control_fp8"] = reference_frame(cell.config, quantize_fp8(
+            load_nets(cell.config, cell.states, cell.device)))
     frames = cell.checked(win)
-    counts = {k: [] for k in KINDS}
+    kinds = ("program", "control", witness, *others, "stale", "shifted",
+             "empty")
+    counts = {k: [] for k in kinds}
+    tols = cell.limits["tolerances"]
+    # an f32 witness is read at 1e-3; a bf16 one at the cell's tolerances,
+    # as the control is
+    tols_w = (dict(tols, depth=1e-3, norm=1e-3, tex=1e-3)
+              if dtype == "float32" else tols)
+
+    def read(kind, got, want, t=tols):
+        counts[kind].append(compare.frame_counts(got, want, t, cell.level))
+
     t0 = time.perf_counter()
     prev, hints = None, []
     with torch.inference_mode():
@@ -62,29 +88,29 @@ def readings(manifest, workload: str, seed: int, seconds: float,
             inputs = cell.reference_inputs(win, i, ref)
             want = ref(*inputs)
             got = cell.output(win, i)
-            tols = cell.limits["tolerances"]
-            counts["program"].append(compare.frame_counts(got, want, tols))
-            counts["control"].append(compare.frame_counts(ctrl(*inputs), want,
-                                                          tols))
+            read("program", got, want)
+            read("control", ctrl(*inputs), want)
+            for k, other in others.items():
+                read(k, other(*inputs), want)
             img, img_c, calib, hint = inputs
-            counts["program_f32"].append(compare.frame_counts(
-                eng32.frame(img, img_c, calib, compact_hint=hint), want,
-                dict(tols, depth=1e-3, norm=1e-3, tex=1e-3)))
-            shifted = dict(got, depth=got["depth"] + 2.0)
-            counts["shifted"].append(compare.frame_counts(shifted, want,
-                                                          tols))
+            read(witness, eng_w.frame(img, img_c, calib, compact_hint=hint),
+                 want, tols_w)
+            read("shifted", dict(got, depth=got["depth"] + 2.0), want)
+            read("empty", dict(got, valid=torch.zeros_like(got["valid"])),
+                 want)
             if prev is not None:
-                counts["stale"].append(compare.frame_counts(prev, want, tols))
+                read("stale", prev, want)
             prev = {k: v.clone() for k, v in got.items()}
             hints.append([win.meta[i][2], inputs[3]])
     cell._sync()
     return {"seed": seed, "frames": len(frames), "window_frames": win.frames,
-            "fps": win.frames / win.elapsed,
+            "fps": win.frames / win.elapsed, "tolerances": tols,
             "check_s": time.perf_counter() - t0, "hints": hints,
             **{k: compare.pooled(v) for k, v in counts.items()},
-            **{f"{k}_p995": [{n: v for n, v in f.items() if "p995" in n}
-                             for f in counts[k]]
-               for k in ("program", "program_f32")}}
+            **{f"{k}_errors": [{n: v for n, v in f.items()
+                                if n.endswith(("_p995", "_flip"))}
+                               for f in counts[k]]
+               for k in kinds if k not in ("stale", "empty")}}
 
 
 def main(argv=None) -> int:
@@ -103,10 +129,12 @@ def main(argv=None) -> int:
         rows.append(readings(manifest, args.workload, seed, args.seconds))
         print(json.dumps(rows[-1]), flush=True)
     summary = {"workload": args.workload, "seeds": len(rows), "card": card.smi()}
-    for kind, pick in (("program", max), ("program_f32", max),
-                       ("control", min), ("stale", min), ("shifted", min)):
-        summary[kind] = {k: pick(r[kind][k] for r in rows)
-                         for k in rows[0][kind]}
+    for kind in ("program", "program_f32", "control", "program_bf16",
+                 "control_fp8", "stale", "shifted", "empty"):
+        if kind in rows[0]:
+            pick = max if kind in ("program", "program_f32") else min
+            summary[kind] = {k: pick(r[kind][k] for r in rows)
+                             for k in rows[0][kind]}
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -11,6 +11,7 @@ import torch
 
 _NET_KEYS = ("projection", "backbone", "normalizer", "head", "loss", "mean",
              "std")
+_RAY_KEYS = ("fine_res", "taps", "window", "march_levels")
 
 
 def _opt(spec: dict) -> dict:
@@ -33,33 +34,40 @@ def build_kernels() -> dict:
     return seconds
 
 
-def build_engine(config: dict, states: dict, device):
-    """(engine, seconds to build it)."""
-    from monoport_tpu_torch.config import CN
-    from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
-                                           RotatedCfg)
+def engine_config(config: dict):
+    """(HierarchicalRecon, EngineCfg) of a configuration's ``profile``: the
+    hierarchy, and the path of its ``mode`` with the fields the profile
+    gives (the engine's defaults for the rest)."""
+    from monoport_tpu_torch.engine import EngineCfg, RayCfg, RotatedCfg
     from monoport_tpu_torch.recon.hierarchy import HierarchicalRecon
-    from monoport_tpu_torch.weights import build_net
 
-    t0 = time.perf_counter()
     p = config["profile"]
-    nets = {k: build_net(CN(_opt(config[k])), states[k], device)
-            for k in states}
     h = p["hierarchy"]
     recon = HierarchicalRecon(
         resolutions=tuple(h["resolutions"]), budgets=tuple(h["budgets"]),
         b_min=tuple(p["b_min"]), b_max=tuple(p["b_max"]),
         balance_value=p["balance_value"], boundary_tau=h["boundary_tau"],
         dilate=h["dilate"], select=h["select"])
-    rot = p["rotated"]
+    ray = {k: tuple(p[k]) if isinstance(p[k], list) else p[k]
+           for k in _RAY_KEYS if k in p}
     cfg = EngineCfg(
         render_size=p["render_size"],
         compute_dtype=getattr(torch, p["compute_dtype"]),
-        ray=RayCfg(mode=p["mode"], fine_res=p["fine_res"], taps=p["taps"],
-                   window=p["window"], march_levels=tuple(p["march_levels"])),
-        rotated=RotatedCfg(march=rot["march"], compact=rot["compact"],
-                           anchors=rot["anchors"],
-                           anchor_texels=rot["anchor_texels"]))
+        ray=RayCfg(mode=p["mode"], **ray),
+        rotated=RotatedCfg(**p.get("rotated", {})))
+    return recon, cfg
+
+
+def build_engine(config: dict, states: dict, device):
+    """(engine, seconds to build it)."""
+    from monoport_tpu_torch.config import CN
+    from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.weights import build_net
+
+    t0 = time.perf_counter()
+    nets = {k: build_net(CN(_opt(config[k])), states[k], device)
+            for k in states}
+    recon, cfg = engine_config(config)
     engine = ReconEngine(nets["netG"], nets.get("netC"), recon=recon,
                          config=cfg, device=device)
     return engine, time.perf_counter() - t0

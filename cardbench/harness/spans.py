@@ -124,6 +124,19 @@ def device_by_span(spans, device) -> dict:
     return dict(out)
 
 
+def device_by_span_op(spans, device) -> dict:
+    """Device ns by (the innermost span open at each operation's launch,
+    the operation's name); unlinked operations go to UNLINKED."""
+    out: dict = defaultdict(int)
+    linked = [d for d in device if d[3] is not None]
+    for d, name in zip(linked, innermost([d[3] for d in linked], spans)):
+        out[name, d[2]] += d[1] - d[0]
+    for d in device:
+        if d[3] is None:
+            out[UNLINKED, d[2]] += d[1] - d[0]
+    return dict(out)
+
+
 def idle_by_span(spans, device, window) -> dict:
     """Idle ns of the device within ``window`` (t0, t1), each gap by the
     innermost span open at its middle."""
@@ -194,6 +207,9 @@ class Readings:
     plans: dict                    # "path rung plan" -> frames
     recorded_fps: float
     traced_fps: float
+    # (span name, device op name) -> device ms a frame
+    op_ms: dict = dataclasses.field(default_factory=dict)
+    traced_from: int | None = None  # the traced stretch's first frame
 
     def layer_device_ms(self, prefix: str):
         """Device ms a frame launched in the layer's spans; None when no
@@ -217,9 +233,11 @@ def traced_stretch(cell, prof, start: int, frames: int, hint):
     return rec, p, seconds
 
 
-def reduce(rec_host, rec_dev, device, marks, frames: int, seconds: dict):
+def reduce(rec_host, rec_dev, device, marks, frames: int, seconds: dict,
+           traced_from: int | None = None):
     """Readings from the two stretches' recorders, the traced stretch's
-    device ops and marked frames, and each stretch's seconds."""
+    device ops and marked frames (from frame ``traced_from``), and each
+    stretch's seconds."""
     spans = span_tuples(rec_host)
     per = 1e6 * frames                          # ns over the stretch -> ms
     host = {k: [v[0] / per, v[1] / per]
@@ -230,6 +248,8 @@ def reduce(rec_host, rec_dev, device, marks, frames: int, seconds: dict):
     window = (marks[0][0], marks[-1][1]) if marks else None
     device_ms = {k: v / per for k, v in device_by_span(dev_spans,
                                                        device).items()}
+    op_ms = {k: v / per for k, v in device_by_span_op(dev_spans,
+                                                      device).items()}
     idle_ms = ({k: v / per for k, v in idle_by_span(dev_spans, device,
                                                      window).items()}
                if window and device else {})
@@ -251,7 +271,37 @@ def reduce(rec_host, rec_dev, device, marks, frames: int, seconds: dict):
         rows={k: v / frames for k, v in rows.items()},
         layer_rows={k: v / frames for k, v in layer_rows.items()},
         plans=dict(plans), recorded_fps=frames / seconds["recorded"],
-        traced_fps=frames / seconds["traced"])
+        traced_fps=frames / seconds["traced"], op_ms=op_ms,
+        traced_from=traced_from)
+
+
+def roofline(ctx, span: str, net: str, kernels) -> float | None:
+    """A kernel's share of its roofline, in percent, on a path whose rows
+    follow the image: the least time of ``net``'s head queries in the
+    traced frames (``work.queries_bound_s`` of the rows the reference
+    gives each frame's image, ``Cell.head_rows``) over the device time of
+    the operations named by any of ``kernels`` and launched inside
+    ``span`` (by name and span: the port's f32 kernels 1 and 2 share
+    names). None on the 'ray' path, without spans, or where the kernel
+    did not run."""
+    from . import work
+
+    cell = ctx.cell
+    if cell.config["profile"]["mode"] == "ray":
+        return None
+    r = readings(ctx)
+    if r is None:
+        return None
+    ms = sum(v for (s, name), v in r.op_ms.items()
+             if s == span and any(k in name for k in kernels))
+    if ms <= 0.0:
+        return None
+    bound = 0.0
+    for i in range(r.traced_from, r.traced_from + r.frames):
+        body, pose = cell.traffic.frame(i)
+        bound += work.queries_bound_s(cell.config, cell.traffic.calibs[pose],
+                                      cell.head_rows(body, pose), net)
+    return 100.0 * bound / r.frames / (ms * 1e-3)
 
 
 def _info(kind: str, **fields) -> None:
@@ -279,7 +329,8 @@ def readings(ctx):
                                            FRAMES, hint)
     device, marks = profiled_ops(p.profiler.kineto_results.events())
     r = reduce(rec_host, rec_dev, device, marks, FRAMES,
-               {"recorded": s_host, "traced": s_dev})
+               {"recorded": s_host, "traced": s_dev},
+               traced_from=start + 1 + FRAMES)
     cell.span_readings = r
     window_fps = ctx.window.frames / ctx.window.elapsed
     dev_total = sum(r.device_ms.values())

@@ -9,7 +9,10 @@ once through the feature columns of every layer, and runs the hidden
 products once a tap; a per-point query runs every layer's products a
 point. A frame's rows follow its inputs: the calib picks the path and
 each rotated refine level's anchor count, the compaction hint the budget
-rung (``reference.recon``'s frozen copies of the two host rules).
+rung (``reference.recon``'s frozen copies of the two host rules). A
+profile ``mode`` other than 'ray' counts the queries its reference frame
+path's ``queries`` lists, from the rows its reference gives the frame's
+image (``rows``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..reference import nets
+from ..reference.frame import frame_path
 from ..reference.recon import anchor_plan, compact_rays, snap_budget, taps_ok
 
 PEAK_BF16 = 989e12
@@ -36,13 +40,14 @@ def head_dims(widths):
 
 
 def ray_mlp_work(widths, rays: int, taps: int, anchors: int = 1,
-                 mixed: bool = False, op_bytes: int = 2):
-    """(operations, seconds of them at the bf16 and f32 peaks, bytes) of a
-    ray query of ``rays`` x ``taps``: W_f once per ray and anchor, the
-    hidden products per tap, and with ``mixed`` the K-term hat mix per tap
-    and column as f32 multiply-adds. Bytes: each input read once (the
-    features in the operand type, z and the mix weights in f32), the
-    weights once, the f32 output once."""
+                 mixed: bool = False, op_bytes: int = 2,
+                 peak: float = PEAK_BF16):
+    """(operations, seconds of them at ``peak`` and the hat mix's at the
+    f32 peak, bytes) of a ray query of ``rays`` x ``taps``: W_f once per
+    ray and anchor, the hidden products per tap, and with ``mixed`` the
+    K-term hat mix per tap and column as f32 multiply-adds. Bytes: each
+    input read once (the features in the operand type, z and the mix
+    weights in f32), the weights once, the f32 output once."""
     c_in, outs, n_params = head_dims(widths)
     c_f = c_in - 1
     mac_ray = anchors * c_f * sum(outs)
@@ -52,23 +57,45 @@ def ray_mlp_work(widths, rays: int, taps: int, anchors: int = 1,
     nbytes = (rays * anchors * c_f * op_bytes + rays * taps * 4
               + (rays * taps * anchors * 4 if mixed else 0)
               + n_params * op_bytes + rays * taps * outs[-1] * 4)
-    return flops + mix, flops / PEAK_BF16 + mix / PEAK_F32, nbytes
+    return flops + mix, flops / peak + mix / PEAK_F32, nbytes
 
 
-def point_mlp_work(widths, points: int, op_bytes: int = 2):
-    """The same for a per-point query: every layer's products a point."""
+def point_mlp_work(widths, points: int, op_bytes: int = 2,
+                   peak: float = PEAK_BF16):
+    """The same for a per-point query: every layer's products a point, at
+    ``peak`` operations a second."""
     c_in, outs, n_params = head_dims(widths)
     mac = c_in * outs[0] + sum((a + c_in) * b for a, b in zip(outs[:-1],
                                                             outs[1:]))
     flops = 2.0 * points * mac
     nbytes = points * c_in * op_bytes + n_params * op_bytes + points * outs[-1] * 4
-    return flops, flops / PEAK_BF16, nbytes
+    return flops, flops / peak, nbytes
 
 
 def bound_s(work) -> float:
     """The least time of a launch: operations or bytes, the larger."""
     _, t_ops, nbytes = work
     return max(t_ops, nbytes / PEAK_BYTES)
+
+
+def queries_bound_s(config: dict, calib: np.ndarray, rows, net: str) -> float:
+    """The least time of ``net``'s head queries of one frame on a path
+    whose rows follow the image (its reference path's ``queries`` of the
+    reference's ``rows``), at the peak of the profile's compute dtype: 67
+    TFLOP/s f32 on the FMA units with 4-byte operands, or 989 bf16."""
+    p = config["profile"]
+    peak, op_bytes = ((PEAK_F32, 4) if p["compute_dtype"] == "float32"
+                      else (PEAK_BF16, 2))
+    w = config[net]["head"]["widths"]
+    total = 0.0
+    for q, kind, n, taps in frame_path(p["mode"]).queries(config, calib,
+                                                          rows):
+        if q == net:
+            total += bound_s(
+                ray_mlp_work(w, n, taps, op_bytes=op_bytes, peak=peak)
+                if kind == "ray" else
+                point_mlp_work(w, n * taps, op_bytes, peak))
+    return total
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,12 +141,21 @@ def frontal_ray_launches(config: dict):
     return out
 
 
-def frame_head_works(config: dict, calib: np.ndarray, hint) -> list:
-    """The work of every head query of one frame, by its path."""
+def frame_head_works(config: dict, calib: np.ndarray, hint,
+                     rows=None) -> list:
+    """The work of every head query of one frame, by its path; ``rows``:
+    the reference's rows of the frame on a path whose rows follow the
+    image (``Cell.head_rows``)."""
+    p = config["profile"]
+    if p["mode"] != "ray":
+        return [ray_mlp_work(config[net]["head"]["widths"], n, taps)
+                if kind == "ray" else
+                point_mlp_work(config[net]["head"]["widths"], n * taps)
+                for net, kind, n, taps in
+                frame_path(p["mode"]).queries(config, calib, rows)]
     if taps_ok(calib):
         return [ray_mlp_work(w, r, t)
                 for w, r, t in frontal_ray_launches(config)]
-    p = config["profile"]
     rot = p["rotated"]
     levels, taps, fine = p["march_levels"], p["taps"], p["fine_res"]
     g = config["netG"]["head"]["widths"]
@@ -142,11 +178,12 @@ def frame_head_works(config: dict, calib: np.ndarray, hint) -> list:
     return works
 
 
-def frame_flops(config: dict, calib: np.ndarray, hint) -> float:
+def frame_flops(config: dict, calib: np.ndarray, hint, rows=None) -> float:
     """Model operations of one frame: the backbones' convolutions at the
     input size and every head query."""
     size = config["image_size"]
     total = backbone_flops(config["netG"]["backbone"], size)
     if "netC" in config:
         total += backbone_flops(config["netC"]["backbone"], size)
-    return total + sum(w[0] for w in frame_head_works(config, calib, hint))
+    return total + sum(w[0] for w in frame_head_works(config, calib, hint,
+                                                      rows))

@@ -14,13 +14,19 @@ query runs the plain head on the exact per-point or anchored input.
 
 ``quantize_fp8`` turns a reference into the control: every convolution
 and linear layer takes its input and weight rounded to float8 e4m3 with a
-per-tensor scale.
+per-tensor scale. ``control_nets`` picks a configuration's control: that,
+under bf16; under float32 (TF32 off), ``quantize_tf32``'s operands rounded
+to TF32.
+
+This is the frame of the profile's ``mode='ray'``; ``reference_frame``
+takes any other mode's from a file of its own (``reference/__init__.py``).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -28,7 +34,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import recon
-from .nets import ImplicitNet
+from .nets import ImplicitNet, load_file
+
+FRAMES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "frames")
 
 
 @dataclasses.dataclass
@@ -67,6 +76,23 @@ def load_nets(config: dict, states: dict, device) -> dict:
             net.load_state_dict(states[key], strict=True)
             out[key] = net.to(device=device, dtype=torch.float32).eval()
     return out
+
+
+def frame_path(mode: str, directory: str | None = None):
+    """The module of the frame path ``mode`` other than 'ray':
+    ``<mode>.py`` in ``directory`` (``FRAMES_DIR`` when None)."""
+    path = os.path.join(directory or FRAMES_DIR, f"{mode}.py")
+    if mode == "ray" or not os.path.isfile(path):
+        raise ValueError(f"no reference frame path {mode!r}")
+    return load_file(path)
+
+
+def reference_frame(config: dict, nets: dict):
+    """The reference frame of a configuration's profile ``mode``."""
+    mode = config["profile"]["mode"]
+    if mode == "ray":
+        return ReferenceFrame(config, nets)
+    return frame_path(mode).Frame(config, nets)
 
 
 class ReferenceFrame:
@@ -138,19 +164,48 @@ def _fp8(x: torch.Tensor) -> torch.Tensor:
     return (x / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
 
 
-def quantize_fp8(nets: dict) -> dict:
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32) rounded to TF32's 10 mantissa bits, to nearest, ties to
+    even, as the tensor cores take an f32 operand."""
+    i = x.contiguous().view(torch.int32)
+    i = (i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF
+    return i.view(torch.float32)
+
+
+def _rounded(nets: dict, rnd) -> dict:
     """Copies of the reference nets whose convolutions and linear layers
-    compute on float8 e4m3 inputs and weights (f32 accumulation)."""
+    compute on inputs and weights rounded by ``rnd`` (f32 accumulation)."""
     out = {}
     for key, net in nets.items():
         net = copy.deepcopy(net)
         for m in net.modules():
             if isinstance(m, nn.Conv2d):
                 m.forward = (lambda x, m=m: F.conv2d(
-                    _fp8(x), _fp8(m.weight), m.bias, m.stride, m.padding,
+                    rnd(x), rnd(m.weight), m.bias, m.stride, m.padding,
                     m.dilation, m.groups))
             elif isinstance(m, nn.Linear):
-                m.forward = (lambda x, m=m: F.linear(_fp8(x), _fp8(m.weight),
+                m.forward = (lambda x, m=m: F.linear(rnd(x), rnd(m.weight),
                                                      m.bias))
         out[key] = net
     return out
+
+
+def quantize_fp8(nets: dict) -> dict:
+    """Copies of the reference nets whose convolutions and linear layers
+    compute on float8 e4m3 inputs and weights (f32 accumulation)."""
+    return _rounded(nets, _fp8)
+
+
+def quantize_tf32(nets: dict) -> dict:
+    """The same on TF32 inputs and weights: what the tensor cores compute
+    with TF32 on."""
+    return _rounded(nets, _tf32)
+
+
+def control_nets(config: dict, nets: dict) -> dict:
+    """The control of a configuration: its reference nets one precision
+    step below its ``compute_dtype`` (float32 with TF32 off -> TF32,
+    bfloat16 -> float8 e4m3)."""
+    if config["profile"]["compute_dtype"] == "float32":
+        return quantize_tf32(nets)
+    return quantize_fp8(nets)

@@ -10,11 +10,16 @@ and anchored queries. Images are NHWC, features [B, h, w, C], points
 
 Module and parameter names match the checkpoints' torch layout, so one
 state dict loads here and into the system under test. Nothing here
-imports the system under test: this file is the yardstick.
+imports the system under test: this file is the yardstick. A backbone
+other than the three built in here is found by its ``IMF`` name as a file
+of its own (``backbone``; ``reference/__init__.py``).
 """
 
 from __future__ import annotations
 
+import importlib.util
+import os
+import sys
 from typing import Sequence
 
 import numpy as np
@@ -24,6 +29,8 @@ import torch.nn.functional as F
 
 Z_SCALE = 512 // 2 / 200.0          # PIFu's depth normalizer
 HEAD_ROWS = 65536                   # rows of one plain head call
+BACKBONE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "backbones")
 
 _CONSTANTS: dict = {}
 
@@ -513,8 +520,26 @@ def hrnet_small_v2_cfg(c2, c3, c4) -> dict:
     }
 
 
-def backbone(spec: dict) -> nn.Module:
-    """The backbone a configuration file's ``backbone`` entry names."""
+def load_file(path: str):
+    """The module of the Python file ``path``, executed once a process."""
+    name = "cardbench_reference_" + "".join(
+        c if c.isalnum() else "_" for c in os.path.abspath(path))
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        try:
+            spec.loader.exec_module(module)
+        except BaseException:
+            del sys.modules[name]
+            raise
+    return sys.modules[name]
+
+
+def backbone(spec: dict, directory: str | None = None) -> nn.Module:
+    """The backbone a configuration file's ``backbone`` entry names: one
+    of the three here, else ``build(spec)`` of ``<IMF>.py`` in
+    ``directory`` (``BACKBONE_DIR`` when None)."""
     imf, norm = spec["IMF"], spec.get("norm", "group")
     if imf == "PIFuHGFilters":
         return HGFilter(spec["num_stack"], spec["num_hourglass"],
@@ -523,7 +548,10 @@ def backbone(spec: dict) -> nn.Module:
         return ResnetFilter(spec.get("ngf", 64), spec.get("n_blocks", 6), norm)
     if imf == "HRNetV2_W18_small_v2":
         return HRNet(hrnet_small_v2_cfg(*spec["widths"]), norm)
-    raise ValueError(f"no reference backbone {imf!r}")
+    path = os.path.join(directory or BACKBONE_DIR, f"{imf}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"no reference backbone {imf!r}")
+    return load_file(path).build(spec)
 
 
 def _anchor_positions(k: int) -> np.ndarray:

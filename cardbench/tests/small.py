@@ -26,8 +26,10 @@ def small_config(config: dict) -> dict:
         "kind": "seeded"}                       # the npz's widths are cut
     c["weights"] = dict(recipe, head={"last_scale": 1.0,
                                       "last_z_weight": -8.0})
-    c["profile"].update(compute_dtype="float32", fine_res=33, window=24,
-                        march_levels=[9, 17], render_size=32)
+    p = c["profile"]            # the fields the profile's mode has
+    p.update({k: v for k, v in dict(
+        compute_dtype="float32", fine_res=33, window=24, march_levels=[9, 17],
+        render_size=32).items() if k in p})
     c["profile"]["hierarchy"].update(resolutions=[5, 9, 17],
                                      budgets=[0, 512, 2048])
     return c

@@ -1,7 +1,10 @@
-"""``correct`` has to come out false: the control (the reference on
-float8 e4m3 inputs and weights, put in the engine's place) and planted
-faults, each driven through the rest of a run on the CPU at a small size
-(the look for a card skipped). A sound run of the same size is correct.
+"""``correct`` has to come out false: the control (the reference one
+precision step below the configuration, float8 e4m3 under bf16 and TF32
+under float32, put in the engine's place) and planted faults (a stale
+state, altered answers, a frame with no silhouette, and in the dense cell
+a volume altered only behind the surface the peel sees), each driven
+through the rest of a run on the CPU at a small size (the look for a card
+skipped). A sound run of the same size is correct.
 The control's readings at the cells' own size on the card come from
 ``cardbench/calibrate.py`` (PERF.md)."""
 
@@ -13,12 +16,13 @@ import torch
 import monoport_tpu_torch.engine as engine_mod
 from cardbench import run as bench_run
 from cardbench.harness.cell import Cell
-from cardbench.reference.frame import ReferenceFrame, load_nets, quantize_fp8
+from cardbench.harness.manifest import Manifest
+from cardbench.reference.frame import control_nets, load_nets, reference_frame
 
 from .small import SmallManifest
 
 SEED = 4_100_000_003
-CELLS = ("hg4-frontal", "hg4-orbit", "hrnet-frontal")
+CELLS = ("hg4-frontal", "hg4-orbit", "hrnet-frontal", "hg4-dense")
 
 
 @pytest.fixture(autouse=True)
@@ -45,11 +49,15 @@ def test_sound_run_is_correct(workload):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_in_the_engines_place(monkeypatch, workload):
-    """The f32 reference rounded to fp8 answers every frame."""
+    """The f32 reference one precision step below the configuration (its
+    full-size file's: the small cut computes in f32) answers every
+    frame."""
     def control_frame(self, i, hint):
         if not hasattr(self, "_control"):
             nets = load_nets(self.config, self.states, self.device)
-            self._control = ReferenceFrame(self.config, quantize_fp8(nets))
+            stated = Manifest().config(self.entry["config"])
+            self._control = reference_frame(self.config,
+                                            control_nets(stated, nets))
         b, c = self.traffic.frame(i)
         img = self.traffic.images[b:b + 1]
         return self._control(img, None if self.images_c is None else img,
@@ -86,3 +94,43 @@ def test_altered_answers(monkeypatch, workload):
                             lambda *a, fn=fn: fn(*a) + 0.2)
     res = _run(workload)
     assert not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_empty_frame(monkeypatch, workload):
+    """Every frame answers with no silhouette at all."""
+    frame = Cell.frame
+
+    def empty(self, i, hint):
+        out = dict(frame(self, i, hint))
+        out["valid"] = torch.zeros_like(out["valid"])
+        return out
+
+    monkeypatch.setattr(Cell, "frame", empty)
+    res = _run(workload)
+    assert not res["correct"], res["checks"]
+
+
+def test_hidden_voxels_altered(monkeypatch):
+    """The volume's far half emptied where the frame produces it: the
+    peeled depth, silhouette and renders stay the reference's, the
+    ``sdf`` does not."""
+    frame = Cell.frame
+    seen = []
+
+    def hollow(self, i, hint):
+        out = dict(frame(self, i, hint))
+        sdf = out["sdf"].clone()
+        sdf[:sdf.shape[0] // 2] = 0.0
+        seen.append(bool((out["sdf"][:sdf.shape[0] // 2] > 0.5).any()))
+        out["sdf"] = sdf
+        return out
+
+    monkeypatch.setattr(Cell, "frame", hollow)
+    res = _run("hg4-dense")
+    assert any(seen)
+    assert not res["correct"], res["checks"]
+    checks = res["checks"]
+    assert checks["sdf_bad"]["value"] > checks["sdf_bad"]["limit"]
+    for k in ("valid_bad", "depth_bad", "norm_bad", "tex_bad"):
+        assert checks[k]["value"] <= checks[k]["limit"], k

@@ -35,8 +35,9 @@ def test_run_imports_no_jax():
 
 
 def test_reference_imports_nothing_of_the_port():
-    names = _top_level("import cardbench.reference.frame, "
-                       "cardbench.reference.nets, cardbench.reference.recon")
+    names = _top_level("import cardbench.reference.frame as f, "
+                       "cardbench.reference.nets, cardbench.reference.recon\n"
+                       "f.frame_path('dense')")
     assert not names & (FORBIDDEN | {"monoport_tpu_torch"})
 
 

@@ -52,6 +52,21 @@ def test_kernels_go_to_the_span_that_launched_them():
                    "recon.march": 9, spans.NO_SPAN: 3, spans.UNLINKED: 1}
 
 
+def test_kernels_by_span_and_name():
+    device = [(50, 70, "k_backbone", 10), (71, 74, "mlp_kernel", 65),
+              (75, 77, "mlp_kernel", 66), (78, 79, "copy", 67),
+              (90, 99, "mlp_kernel", 89), (140, 141, "copy", None)]
+    got = spans.device_by_span_op(SPANS, device)
+    assert got == {("backbone.netG", "k_backbone"): 20,
+                   ("recon.refine", "mlp_kernel"): 5,
+                   ("recon.refine", "copy"): 1,
+                   ("recon.march", "mlp_kernel"): 9,
+                   (spans.UNLINKED, "copy"): 1}
+    by_span = spans.device_by_span(SPANS, device)
+    for name, ns in by_span.items():
+        assert ns == sum(v for (s, _), v in got.items() if s == name)
+
+
 def test_idle_gaps_go_to_the_span_open_at_their_middle():
     device = [(8, 30, "a", 6), (25, 45, "b", 20), (60, 65, "c", 58),
               (125, 140, "d", 121)]
