@@ -77,7 +77,8 @@ On the card each backbone call (netG's ``filter`` and upcast, netC's
 the first frame of its signature and replayed in every later one
 (``backbone_graphs.py``): one input copy and one graph launch where the
 eager call launches ~1,000 kernels, bit-equal to it. Its span carries
-``graph`` = ``capture`` | ``replay`` | ``eager``, and ``self.graphs.counts``
+``graph`` = ``capture`` | ``replay`` | ``eager`` beside the backbone's
+``imf`` and the queried ``stage``'s map shapes, and ``self.graphs.counts``
 counts each net's calls by mode. The outputs are graph-pool tensors that
 the next frame overwrites; no output of ``frame`` aliases them.
 """
@@ -119,6 +120,14 @@ def _scalar_z(net: MonoPortNet) -> bool:
     """True iff ``net``'s z feature is the scalar normalizer (not the
     soft-onehot one, whose nets only take per-point queries)."""
     return not CN(net.opt_net).normalizer.get("soft_onehot", False)
+
+
+def _backbone_attrs(net: MonoPortNet, feats) -> dict:
+    """A backbone span's attributes beside ``graph``: the backbone's
+    ``imf`` and the [h, w, c] of each map of the stage the queries read
+    (the last), from shapes alone."""
+    return {"imf": net.opt_net.backbone.IMF,
+            "stage": [list(f.shape[1:]) for f in feats[-1]]}
 
 
 def _snap_budget(hint: float, ceiling: float) -> float:
@@ -757,7 +766,8 @@ class ReconEngine:
                 "netG", self._filter_g, (image_g,), (dt,),
                 upcast=dt != torch.float32)
             if sp is not None:
-                sp.attrs["graph"] = mode
+                sp.attrs.update(graph=mode, **_backbone_attrs(self.netG,
+                                                              feats_g))
 
         if ray_g:
             taps_fns = self._query_taps_fn(feats_g, calib_t)
@@ -827,7 +837,8 @@ class ReconEngine:
                     (image_c, feat_prior), (dt, feat_prior.dtype),
                     upcast=upcast and dt != torch.float32)
                 if sp is not None:
-                    sp.attrs["graph"] = mode
+                    sp.attrs.update(graph=mode, **_backbone_attrs(self.netC,
+                                                                  feats_c))
             with profiling.span("texture.query"):
                 if use_grid and self.head_c is not None:
                     tex = self._texture_canvas(

@@ -327,16 +327,21 @@ def _assert_outputs_equal(got: dict, want: dict):
                          ids=["frontal", "inplane", "rotated"])
 def test_cpu_backbone_spans_are_eager(nets, calib):
     """On the CPU every backbone call runs eagerly (span attribute
-    ``graph="eager"``, the engine's counts), and its features are the nets'
-    own ``filter`` outputs, so the frame is the frame of the plain calls."""
+    ``graph="eager"``, the engine's counts; ``imf`` and the queried
+    stage's map shapes beside it), and its features are the nets' own
+    ``filter`` outputs, so the frame is the frame of the plain calls."""
     eng = _engine(nets)
     image = nets[2]
     seen = _collect_backbone_outputs(eng)
     rec, outs = _recorded(eng, nets, calib, frames=2)
     modes = [(s.name, s.attrs) for s in rec.spans
              if s.name.startswith("backbone.")]
-    assert modes == [("backbone.netG", {"graph": "eager"}),
-                     ("backbone.netC", {"graph": "eager"})] * 2
+    assert modes == [("backbone.netG", {"graph": "eager",
+                                        "imf": "PIFuHGFilters",
+                                        "stage": [[16, 16, 32]]}),
+                     ("backbone.netC", {"graph": "eager",
+                                        "imf": "PIFuResBlkFilters",
+                                        "stage": [[16, 16, 288]]})] * 2
     assert eng.graphs.counts == {
         "netG": {"capture": 0, "replay": 0, "eager": 2},
         "netC": {"capture": 0, "replay": 0, "eager": 2}}
