@@ -714,6 +714,9 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                    "bound_ms": max(t_ops, t_byte) * 1e3,
                    "bound_by": "operations" if t_ops >= t_byte else "bytes",
                    "library_ms": None}
+            # the share of its roofline (the f32 rows' bound is the 67
+            # TFLOP/s FMA peak)
+            row["roofline"] = row["bound_ms"] / row["ms"]
             if net is wide_g or net is unsat:
                 row["unsaturated_share"] = float(
                     ((want > 0.02) & (want < 0.98)).float().mean().item())

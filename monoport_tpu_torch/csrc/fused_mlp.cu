@@ -25,8 +25,9 @@
 // f32 (fused_mlp_forward): the parity route, kept on plain FMA in
 // the shared device code (mlp_tiles.cuh: an xproj pass into an f32 scratch,
 // then the layer kernel, its activations in device memory where shared
-// memory cannot hold them). wgmma has no f32 operands, and TF32 would break
-// the 2e-5 parity with the f32 reference.
+// memory cannot hold them; both on a register-blocked block GEMM fed by a
+// ring of bulk weight copies). wgmma has no f32 operands, and TF32 would
+// break the 2e-5 parity with the f32 reference.
 //
 // Plain C interface, loaded through ctypes; launches on the given stream
 // and returns cudaGetLastError().
@@ -55,10 +56,10 @@ int point_launch(const void* x, float* out, const void* w, const float* bias,
 
 extern "C" {
 
-// The f32 route. x [N, C_in padded] f32; out [N, out_dim] f32; wf [sum(out_i),
-// C_in padded] the W_x^T of every layer; wz [sum(out_i)] zeros. The other
-// arguments as mlp_forward (mlp_tiles.cuh). bf16 takes
-// fused_mlp_wgmma_forward.
+// The f32 route. x [N, C_in padded] f32; out [N, out_dim] f32; wf the tile
+// stream of W_x^T of every layer ([sum(out_i), C_in padded], cut as
+// mlp_forward says); wz [sum(out_i)] zeros. The other arguments as
+// mlp_forward (mlp_tiles.cuh). bf16 takes fused_mlp_wgmma_forward.
 int fused_mlp_forward(const void* x, float* out, float* xp, int xp_rows,
                       float* hs, int h_slots, const void* wf, const void* wh,
                       const float* wz, const float* b, const int* widths,

@@ -21,8 +21,9 @@
 //  * f32 (fused_ray_mlp_forward): the parity route on plain FMA,
 //    mlp_tiles.cuh (an xproj pass into a bounded f32 scratch, then the layer
 //    kernel, its activations in device memory where shared memory cannot
-//    hold them). wgmma has no f32 operands, and TF32 would break the 2e-5
-//    parity with the f32 reference.
+//    hold them; both on a register-blocked block GEMM fed by a ring of bulk
+//    weight copies). wgmma has no f32 operands, and TF32 would break the
+//    2e-5 parity with the f32 reference.
 //
 // The anchored MLP replaces
 // monoport_tpu/ops/pallas/fused_ray_mlp.py::_anchor_kernel: per ray K anchor

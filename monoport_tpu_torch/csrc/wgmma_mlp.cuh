@@ -181,51 +181,6 @@ struct AnchorEpilogue : RayEpilogue {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait for the phase of the given parity to complete. A phase that never
-// completes (a protocol fault) traps after ~2 s instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - start > (1ll << 32)) __trap();
-  }
-}
-
-// bytes from device memory to shared memory, counted on bar's transactions
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
-      "r"(smem_addr(bar)) : "memory");
-}
-
 // a [64, 32] tile of a [rows, cols] bf16 tensor (x, or the scratch mode's
 // h) at (row0, k0) by its tensor map; rows past the end arrive as zeros
 __device__ __forceinline__ void tma_load_tile(void* dst,

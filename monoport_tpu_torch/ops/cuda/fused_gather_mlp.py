@@ -24,7 +24,8 @@ bound in its header and in the device code it includes):
   on those rows with the T taps. Two launches, one counted call.
 * f32: the parity route on plain FMA (``csrc/mlp_tiles.cuh``): the gather
   is the loader of the projection pass, the gathered rows live in shared
-  memory only, then the layer kernel.
+  memory only, then the layer kernel; both run the f32 route's
+  register-blocked, ring-fed block GEMM (``fused_ray_mlp``).
 
 Bound: operations, the MLP's (as for ``apply_ray``); the pass alone by
 bytes (the table rows the rays touch, the taps and its [R, C_f] output:

@@ -30,7 +30,11 @@ through ctypes (``build.py``). Two dtypes, two routes:
   pass into a bounded f32 scratch, then the layer kernel, its activations
   in device memory for a head whose buffers do not fit shared memory:
   ``f32_scratch``), which wgmma cannot serve (no f32 operands; TF32 would
-  break the 2e-5 parity).
+  break the 2e-5 parity). Its block GEMM is a register-blocked FMA tile
+  (up to 8 x 8 outputs a thread on contiguous columns, 16-byte shared
+  loads) fed by a ring of bulk copies from the pass-ordered weight copy
+  the packer keeps (``fused_ray_mlp.f32_tiles``); each output is one f32
+  FMA chain over k in order. Bound: operations at 67 TFLOP/s.
 
 ``apply_mlp`` launches the kernel of the tensor's dtype for CUDA tensors
 and runs ``apply_mlp_plain`` for CPU tensors; any other device raises, and

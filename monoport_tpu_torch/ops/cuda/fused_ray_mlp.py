@@ -44,9 +44,16 @@ in the device code it includes) are CUDA C++ for sm_90a, built with
   feat`` once a ray and anchor into a bounded f32 scratch, then the layer
   kernel, which mixes the anchors' projections in its epilogue), which
   wgmma cannot serve (no f32 operands; TF32 would break the 2e-5 parity).
-  A head whose two activation buffers do not fit a block's shared memory
-  (``f32_scratch``, decided from the widths) keeps them in a device-memory
-  scratch of ``F32_SLOTS_PER_SM`` blocks an SM instead.
+  Both kernels run one block GEMM: 32 rows x a column pass of 512, 256,
+  128 or 32 (``f32_passes``), a register tile of up to 8 x 8 outputs a
+  thread fed by 16-byte shared loads, the weights streamed through a
+  4-stage ring of bulk copies on mbarriers from a second, pass-ordered copy
+  the packer keeps (``wf_tiles`` / ``wh_tiles``, ``f32_tiles``). Every
+  output is one f32 FMA chain over k in order, as before the retiling. A
+  head whose two activation buffers do not fit a block's shared memory
+  beside the ring (``f32_scratch``, decided from the widths:
+  ``f32_layer_smem``) keeps them in a device-memory scratch of
+  ``F32_SLOTS_PER_SM`` blocks an SM instead.
 
 Either route takes any head of up to ``wgmma.MAX_LAYERS`` layers: the bf16
 kernel's in-place or scratch mode, the f32 kernel's shared or device-memory
@@ -58,8 +65,8 @@ device raises, and a failed check, build or launch raises.
 
 Packing happens once per parameter set (``pack_ray_mlp_params``): widths
 are padded to multiples of 32, the weights are stored transposed
-([out, in], the operand layout the kernel reads), and the 1- and 3-wide
-last layers are zero-padded.
+([out, in]; for f32 also in the f32 ring's pass order), and the 1- and
+3-wide last layers are zero-padded.
 """
 
 from __future__ import annotations
@@ -79,31 +86,66 @@ LIBRARY = "fused_ray_mlp"
 # the f32 scratch of the shared projections is bounded: the launcher walks
 # the rays in chunks that fit it
 XP_SCRATCH_BYTES = 64 << 20
-# the f32 layer kernel (csrc/mlp_tiles.cuh: F32Cfg, mlp_kernel): rows a
-# block, the activation rows' padding, the weight tile's floats
-F32_BM, F32_LD_PAD, F32_SB_FLOATS = 32, 4, 16 * (128 + 4)
+# the f32 layer kernel (csrc/mlp_tiles.cuh: mlp_kernel): rows a block, the
+# weight ring's bytes (4 stages of 8 KB and their 8 mbarriers)
+F32_BM, F32_RING_BYTES = 32, 4 * 8192 + 8 * 8
+# the column passes of the f32 block GEMM, widest first (csrc/mlp_tiles.cuh:
+# pass_width)
+F32_PASS_WIDTHS = (512, 256, 128, 32)
 # the shared memory a block may opt into on Hopper (sm_90): the limit of a
 # pack on the CPU; a pack on a card reads its card's
 SMEM_OPTIN = 232_448
 # blocks an SM of the f32 layer kernel when its activations live in the
-# device-memory scratch (its shared memory then holds ~10 KB)
-F32_SLOTS_PER_SM = 2
+# device-memory scratch (its 288 threads' registers let one block an SM run)
+F32_SLOTS_PER_SM = 1
 
 
 def f32_activation_lds(widths) -> tuple[int, int]:
-    """The f32 layer kernel's two activation row strides (floats): the
-    widest even-index and odd-index layer outputs, padded."""
+    """The f32 layer kernel's two activation buffers' widths (floats a
+    row, stored k4-major): the widest even-index and odd-index layer
+    outputs."""
     outs = widths[1:]
-    return (max(outs[0::2]) + F32_LD_PAD,
-            max(outs[1::2], default=0) + F32_LD_PAD)
+    return max(outs[0::2]), max(outs[1::2], default=0)
 
 
 def f32_layer_smem(widths, n_anchors: int = MAX_ANCHORS) -> int:
     """Bytes of shared memory the f32 layer kernel asks for with its
-    activations in shared memory (``launch``'s ``smem_m``)."""
+    activations in shared memory (``launch``'s ``smem_m``): the weight
+    ring, both activation buffers and the row terms."""
     ld_a, ld_b = f32_activation_lds(widths)
-    return (4 * (F32_BM * (ld_a + ld_b) + F32_SB_FLOATS) + F32_BM * 8
+    return (F32_RING_BYTES + 4 * F32_BM * (ld_a + ld_b) + F32_BM * 8
             + F32_BM * n_anchors * 4)
+
+
+def f32_passes(n: int) -> list[tuple[int, int]]:
+    """(first column, width) of each column pass of the f32 block GEMM over
+    ``n`` columns (a multiple of 32): the widest of ``F32_PASS_WIDTHS`` that
+    the columns left hold, in column order."""
+    out, n0 = [], 0
+    while n0 < n:
+        width = next(w for w in F32_PASS_WIDTHS if w <= n - n0)
+        out.append((n0, width))
+        n0 += width
+    return out
+
+
+def f32_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A [N, K] weight (an output column a row) in the order the f32 block
+    GEMM's ring reads it: each pass's [K, width] block, k-major, the passes
+    in column order, flat. A ring stage is then a run of whole k-rows of one
+    block: one contiguous copy."""
+    return torch.cat([w[n0:n0 + nt].t().reshape(-1)
+                      for n0, nt in f32_passes(w.shape[0])])
+
+
+def f32_untile(t: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """``f32_tiles``' inverse: the flat stream of an [n, k] weight -> [n,
+    k]."""
+    out, pos = [], 0
+    for _, nt in f32_passes(n):
+        out.append(t[pos:pos + k * nt].view(k, nt).t())
+        pos += k * nt
+    return torch.cat(out)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -117,7 +159,9 @@ class RayMlpPacked:
     of layers 1.. flattened, [out_i, out_(i-1)] each) in the compute dtype;
     ``wz`` and ``b`` [sum(out)] f32. ``c_f`` is the unpadded input width of
     ``wf``: the feature width, or the whole input width (z included, ``wz``
-    zero) when packed for the per-point kernel."""
+    zero) when packed for the per-point kernel. ``wf_tiles`` / ``wh_tiles``
+    (f32 packs only): ``wf`` and each layer's W_h^T again in the order the
+    f32 route's weight ring reads them (``f32_tiles``), layer after layer."""
     wf: torch.Tensor
     wh: torch.Tensor
     wz: torch.Tensor
@@ -127,6 +171,8 @@ class RayMlpPacked:
     out_dim: int
     last_op: str | None
     dtype: torch.dtype
+    wf_tiles: torch.Tensor | None = None
+    wh_tiles: torch.Tensor | None = None
 
     @property
     def f32_scratch(self) -> bool:
@@ -206,6 +252,13 @@ def pack_head(head, dtype: torch.dtype, device, split_z: bool) -> RayMlpPacked:
                 wh.append(blk.reshape(-1))
             off += widths[i + 1]
     wh_flat = torch.cat(wh) if wh else torch.zeros(0)
+    tiles = {}
+    if dtype == torch.float32:
+        tiles = {"wf_tiles": f32_tiles(wf).to(device),
+                 "wh_tiles": torch.cat([f32_tiles(
+                     blk.view(widths[i + 2], widths[i + 1]))
+                     for i, blk in enumerate(wh)] or [torch.zeros(0)]
+                 ).to(device)}
     # the operand dtype rounds W_f / W_h; w_z and b stay f32 as in the
     # TPU packers
     return RayMlpPacked(
@@ -213,7 +266,7 @@ def pack_head(head, dtype: torch.dtype, device, split_z: bool) -> RayMlpPacked:
         wh=wh_flat.to(device=device, dtype=dtype).contiguous(),
         wz=wz.to(device), b=b.to(device), widths=tuple(widths), c_f=c_f,
         out_dim=layers[-1].weight.shape[0], last_op=head.last_op,
-        dtype=dtype)
+        dtype=dtype, **tiles)
 
 
 def pack_ray_mlp_params(head, dtype: torch.dtype = torch.bfloat16,
@@ -315,12 +368,13 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
     when the launch is refused."""
     dev = feat.device
     gidx, gwgt = gather or (None, None)
+    if p.dtype != torch.float32 or p.wf_tiles is None:
+        raise ValueError(f"the FMA route takes f32 packs, not {p.dtype}")
     for name, t in (("z", z), ("w_taps", wk), ("idx", gidx), ("wgt", gwgt),
-                    ("wf", p.wf), ("wh", p.wh), ("wz", p.wz), ("b", p.b)):
+                    ("wf", p.wf_tiles), ("wh", p.wh_tiles), ("wz", p.wz),
+                    ("b", p.b)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, the input on {dev}")
-    if p.dtype != torch.float32:
-        raise ValueError(f"the FMA route takes f32 packs, not {p.dtype}")
     k = n_anchors or 1
     if not 1 <= k <= MAX_ANCHORS:
         raise ValueError(f"{k} anchors: the kernel takes 1..{MAX_ANCHORS}")
@@ -348,7 +402,7 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
         args.append((ptr, z.data_ptr()))
     args += [(ptr, out.data_ptr()), (ptr, xp.data_ptr()), (i32, xp_rows),
              (ptr, None if hs is None else hs.data_ptr()), (i32, slots),
-             (ptr, p.wf.data_ptr()), (ptr, p.wh.data_ptr()),
+             (ptr, p.wf_tiles.data_ptr()), (ptr, p.wh_tiles.data_ptr()),
              (ptr, p.wz.data_ptr()), (ptr, p.b.data_ptr()),
              (ctypes.POINTER(i32), (i32 * len(p.widths))(*p.widths)),
              (i32, len(p.widths) - 1), (i32, p.out_dim),

@@ -5,7 +5,10 @@ head and two wide heads (the bf16 kernel's scratch mode, the f32 route's
 activation scratch; on netG either scratch equals its in-place run bit for
 bit), T in {1, 6, 33}, K in {1, 2, 3, 5}, ragged ray and point counts, uv
 beyond the image for the gather, and a scratch small enough that the f32
-launcher walks the rays in several chunks; the bf16 per-point and ray
+launcher walks the rays in several chunks; the f32 route's retiled block
+GEMM at row counts ragged around its 32-row block in every form, K in {1,
+3, 8} with the activations in shared or device memory, and a chunked
+launch in the activation scratch; the bf16 per-point and ray
 kernels are one launch each with no scratch, the bf16 anchored and
 gathering routes one weighted-row pass and one wgmma launch each, and the
 pass (``csrc/mix_rows.cuh``) equals ``mix_rows_plain`` within one bf16 ulp.
@@ -488,6 +491,88 @@ def test_scratch_mode_equals_in_place_on_netg(card, dtype, monkeypatch):
     torch.cuda.synchronize()
     for a, b in zip(base, forced):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+# the f32 route's block GEMM at row counts ragged around its 32-row block
+# (one row, one short of a block, one past it, the hierarchy's coarse 17^3
+# lattice, one past a wave of 132 blocks); netG's layers take every pass
+# width the packer cuts (1,024 as xp's passes, 512, 256, 128, 32)
+F32_ROWS = (1, 31, 33, 17 ** 3, 132 * 32 + 1)
+
+
+def _f32_call(card, p, form: str, rows: int, rng):
+    """(kernel, plain) outputs of one f32 call of ``form`` over ``rows``
+    rows: per point, a ray at one tap a row, a ray at 6 taps a row block
+    (rows rays, 6 taps), or the gathering ray MLP at one tap."""
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(card)
+    if form == "point":
+        x = t(rng.randn(1, rows, p.c_f))
+        return tmlp.apply_mlp(p, x), tmlp.apply_mlp_plain(p, x)
+    if form == "gather":
+        fmap, uv, z = _gather_inputs(card, p, rows, 1)
+        return (tgather.apply_gather_ray(p, fmap, uv, z),
+                tgather.apply_gather_plain(p, fmap, uv, z))
+    taps = 1 if form == "ray" else 6
+    feat = t(rng.randn(1, rows, p.c_f))
+    z = t(rng.uniform(-1.3, 1.3, (1, rows, taps)))
+    return tray.apply_ray(p, feat, z), tray.apply_ray_plain(p, feat, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["point", "ray", "ray_taps", "gather"])
+@pytest.mark.parametrize("rows", F32_ROWS)
+def test_f32_route_matches_plain_at_ragged_rows(card, rows, form):
+    for name in ("netG", "netC"):
+        pack = (tmlp.pack_mlp_params if form == "point"
+                else tray.pack_ray_mlp_params)
+        p = pack(_head(name), dtype=torch.float32, device=card)
+        got, want = _f32_call(card, p, form, rows,
+                              np.random.RandomState(rows))
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scratch", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_f32_mixed_anchors_match_plain(card, k, scratch, monkeypatch):
+    """The anchored f32 form mixes K = 1, 3 or 8 anchor projections in its
+    epilogue, with the activations in shared memory or (forced) in the
+    device-memory scratch."""
+    if scratch:
+        monkeypatch.setattr(tray.RayMlpPacked, "f32_scratch",
+                            property(lambda self: True))
+    p = tray.pack_ray_mlp_params(_head("netG"), dtype=torch.float32,
+                                 device=card)
+    rng = np.random.RandomState(20 + k)
+    rays, taps = 4225, 6
+    feat = torch.from_numpy(rng.randn(1, rays, k, p.c_f).astype(
+        np.float32)).to(card)
+    w = torch.from_numpy(_hat_weights(rng, rays, taps, k)).to(card)
+    z = torch.from_numpy(rng.uniform(-1.3, 1.3, (1, rays, taps)).astype(
+        np.float32)).to(card)
+    got = tray.apply_anchor(p, feat, w, z)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tray.apply_anchor_plain(p, feat, w, z),
+                               **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["point", "ray_taps", "gather"])
+def test_f32_chunked_scratch_launch_matches_plain(card, form, monkeypatch):
+    """A scratch of 700 projection rows (many chunks, none a whole wave)
+    and the activations forced into device memory: every form still meets
+    its plain version."""
+    p0 = tray.pack_ray_mlp_params(_head("netC"), dtype=torch.float32)
+    monkeypatch.setattr(tray, "XP_SCRATCH_BYTES", 4 * sum(p0.widths[1:]) * 700)
+    monkeypatch.setattr(tray.RayMlpPacked, "f32_scratch",
+                        property(lambda self: True))
+    pack = tmlp.pack_mlp_params if form == "point" else tray.pack_ray_mlp_params
+    p = pack(_head("netC"), dtype=torch.float32, device=card)
+    got, want = _f32_call(card, p, form, 4913, np.random.RandomState(9))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
 
 
 def _graph_nets(config: str, card):
