@@ -5,7 +5,8 @@ and rotated, the hierarchy frames (``mode='dense'`` and the coarse-volume
 
 One frame: netG ``HGFilter`` over the image, surface localization, normal
 shading, netC ``ResnetFilter`` with netG's last feature map as its prior,
-the colour query, and the display resize. Surface localization is one of
+the colour query (the texture stage, ``recon/texture.texture_canvas``),
+and the display resize. Surface localization is one of
 
 * the volume-free ``ray_pyramid`` (dense march, refines through the march
   levels and the windowed fine pass), when ``march_levels`` is set and the
@@ -26,14 +27,14 @@ does, so no per-frame device sync appears:
 * in-plane rotations (z-free rows, not diagonal): the march and the
   refines gather once per ray and run the same ray MLP; the colour query
   runs per point through the plain head;
-* rotated (free-viewpoint) calibs, every calib of a perspective net, and
-  ``use_ray_query=False``: the march runs the exact per-point query
-  through the per-point MLP kernel (``ops/cuda/fused_mlp.apply_mlp``);
-  each refine level queries only its coarse-valid rays (compaction, a
-  static budget) through the anchored ray MLP
-  (``fused_ray_mlp.apply_anchor``) with the anchor count the host-side
-  plan gives that level, or exact per-point where the plan gives none;
-  the per-point colour query rides the last level's compaction.
+* rotated (free-viewpoint) calibs and every calib of a perspective net:
+  the march runs the exact per-point query through the per-point MLP
+  kernel (``ops/cuda/fused_mlp.apply_mlp``); each refine level queries
+  only its coarse-valid rays (compaction, a static budget) through the
+  anchored ray MLP (``fused_ray_mlp.apply_anchor``) with the anchor count
+  the host-side plan gives that level, or exact per-point where the plan
+  gives none; the per-point colour query rides the last level's
+  compaction (``recon/ray_refine.RayCompaction``).
 
 A net with soft-onehot z features (``normalizer.soft_onehot``) takes no
 ray, grid or anchored query, decided per net from its config as in the JAX
@@ -102,12 +103,10 @@ from .ops.cuda.fused_mlp import apply_mlp, pack_mlp_params
 from .ops.cuda.fused_ray_mlp import (apply_anchor, apply_ray,
                                      pack_ray_mlp_params)
 from .parallel.mesh import POINT_AXIS, Mesh, check_mesh
-from .recon.depth_peel import (SurfaceMaps, colorize, depth_peel,
-                               shade_normal, visualize)
+from .recon.depth_peel import depth_peel, shade_normal, visualize
 from .recon.hierarchy import HierarchicalRecon
-from .recon.ray_refine import (_axis_window, _compact_rays, _f32,
-                               _sample_grid, _valid_indices, ray_pyramid,
-                               ray_refine)
+from .recon.ray_refine import ray_pyramid, ray_refine
+from .recon.texture import texture_canvas
 from .utils import profiling
 from .weights import resolve_device
 
@@ -153,16 +152,15 @@ class RayCfg:
       depth peel by the volume-free march pyramid on the frames that may
       march; such a frame has no 'sdf' / 'recon_counts'. Needs
       mode='ray' and direction='front'.
-    use_ray_query: allow the ray-structured queries (shared gather and
-    skip projections per ray). They are valid only for calibs with z-free
-    image-plane rows; ``frame()`` checks per call. False sends every
-    frame down the per-point / anchored path."""
+
+    The ray-structured queries (one gather per ray, the projections
+    shared by its taps) run wherever the calib's image rows are z-free
+    and the net allows them; ``frame()`` checks per call."""
     mode: str = "dense"
     fine_res: int = 257
     taps: int = 6
     window: Optional[int] = None
     march_levels: Optional[tuple] = None
-    use_ray_query: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,30 +190,6 @@ class RotatedCfg:
 
 
 @dataclasses.dataclass(frozen=True)
-class TextureCfg:
-    """netC texture-stage knobs (rotated per-point path).
-
-    bf16: do not upcast netC's feature maps to f32 for the per-point
-      colour query. As in the JAX package it changes nothing today: the
-      f32 geometry prior concatenated into those maps has promoted them to
-      f32 already.
-    reuse_compact: the per-point colour query rides the last refine
-      level's compaction (window, gathered rays, refined depths) instead
-      of deriving window, valid set and indices again from the maps.
-    stride: query colours on a dense (window/stride)^2 lattice instead of
-      the compacted valid set, and upsample them bilinearly back to the
-      ray lattice; geometry is untouched. 1 = exact.
-    pallas_head: run the per-point colour MLP through the per-point MLP
-      kernel, as the occupancy queries do (the flag keeps the JAX
-      package's name). Default False: the plain head.
-    """
-    bf16: bool = False
-    reuse_compact: bool = True
-    stride: int = 1
-    pallas_head: bool = False
-
-
-@dataclasses.dataclass(frozen=True)
 class EngineCfg:
     """render_size: output canvas; direction: the view of the hierarchy
     frames' depth peel ('front', 'back', 'left', 'right'); compute_dtype:
@@ -226,54 +200,55 @@ class EngineCfg:
     compute_dtype: torch.dtype = torch.float32
     ray: RayCfg = RayCfg()
     rotated: RotatedCfg = RotatedCfg()
-    texture: TextureCfg = TextureCfg()
 
     @classmethod
     def flat(cls, **knobs) -> "EngineCfg":
         """A grouped config from the JAX package's flat knob names
         (``monoport_tpu.engine.EngineCfg.flat``). An unknown name raises
-        ``KeyError``. The port has no interpret mode and no plain route in
-        place of its kernels: ``use_pallas`` is accepted only as True and
-        ``pallas_interpret`` only as False."""
+        ``KeyError``. A knob of ``_FIXED_KNOBS`` is one the port runs at
+        one value only: that value changes nothing, any other raises
+        ``ValueError``. They are the kernel routes (no interpret mode, no
+        plain route in place of a kernel: ``use_pallas``,
+        ``pallas_interpret``), the ray-structured queries wherever calib
+        and net allow them (``use_ray_query``), and the texture stage's
+        upcast netC maps, reused refine compaction, exact colour lattice
+        and plain per-point colour head (``tex_bf16``,
+        ``tex_reuse_compact``, ``tex_stride``, ``tex_pallas_head``)."""
         top: dict = {}
-        groups: dict = {"ray": {}, "rotated": {}, "texture": {}}
+        groups: dict = {"ray": {}, "rotated": {}}
         for name, value in knobs.items():
-            where = _FLAT[name]
-            if name in _KERNEL_KNOBS:
-                if value != _KERNEL_KNOBS[name]:
+            if name in _FIXED_KNOBS:
+                if value != _FIXED_KNOBS[name]:
                     raise ValueError(
-                        f"{name}={value!r}: the port's kernels always run "
-                        f"on the card (their plain versions on CPU tensors);"
-                        f" only {_KERNEL_KNOBS[name]} is accepted")
-            elif where is None:
+                        f"{name}={value!r}: the port runs only "
+                        f"{name}={_FIXED_KNOBS[name]!r}")
+                continue
+            where = _FLAT[name]
+            if where is None:
                 top[name] = value
             else:
                 groups[where[0]][where[1]] = value
         return cls(ray=RayCfg(**groups["ray"]),
-                   rotated=RotatedCfg(**groups["rotated"]),
-                   texture=TextureCfg(**groups["texture"]), **top)
+                   rotated=RotatedCfg(**groups["rotated"]), **top)
 
 
 # the JAX package's flat knob names -> (group, field); None = top level
 _FLAT = {
     "render_size": None, "direction": None, "compute_dtype": None,
-    "use_pallas": None, "pallas_interpret": None,
     "mode": ("ray", "mode"), "fine_res": ("ray", "fine_res"),
     "ray_taps": ("ray", "taps"), "ray_window": ("ray", "window"),
     "march_levels": ("ray", "march_levels"),
-    "use_ray_query": ("ray", "use_ray_query"),
     "march_rotated": ("rotated", "march"),
     "compact_rotated": ("rotated", "compact"),
     "rot_anchors": ("rotated", "anchors"),
     "rot_anchor_texels": ("rotated", "anchor_texels"),
-    "tex_bf16": ("texture", "bf16"),
-    "tex_reuse_compact": ("texture", "reuse_compact"),
-    "tex_stride": ("texture", "stride"),
-    "tex_pallas_head": ("texture", "pallas_head"),
 }
-# the knobs of the JAX package's kernel routes, and the one value each
-# takes here
-_KERNEL_KNOBS = {"use_pallas": True, "pallas_interpret": False}
+# the rest of the JAX package's flat knobs, and the one value each takes
+# here (``EngineCfg.flat``)
+_FIXED_KNOBS = {"use_pallas": True, "pallas_interpret": False,
+                "use_ray_query": True, "tex_bf16": False,
+                "tex_reuse_compact": True, "tex_stride": 1,
+                "tex_pallas_head": False}
 
 
 class ReconEngine:
@@ -391,31 +366,23 @@ class ReconEngine:
 
         The JAX engine applies the plain head with compute-dtype params to
         f32 feature maps, which promotes to f32 products on the rounded
-        weights: here that is an f32 copy of the compute-dtype head.
-        ``texture.pallas_head`` takes the per-point MLP kernel instead."""
-        head = self.netC.surface_classifier
-        if self.config.texture.pallas_head:
-            packed = pack_mlp_params(head, self.compute_dtype, self.device)
-            return lambda x: apply_mlp(packed, x)
+        weights: here that is an f32 copy of the compute-dtype head."""
         if self.compute_dtype == torch.float32:
             return None
-        return copy.deepcopy(head).float()
+        return copy.deepcopy(self.netC.surface_classifier).float()
 
     def _ray_ok(self, net: MonoPortNet) -> bool:
         """True iff ``net`` may take the ray- and grid-structured queries
-        (the JAX engine's ``_ray_head is not None``): they are allowed, the
-        net is orthographic and its z feature is a scalar. Decided per net
-        from its config, before any frame."""
-        return (self.config.ray.use_ray_query and _scalar_z(net)
+        (the JAX engine's ``_ray_head is not None``): the net is
+        orthographic and its z feature is a scalar. Decided per net from
+        its config, before any frame."""
+        return (_scalar_z(net)
                 and CN(net.opt_net).projection == "orthogonal")
 
     def _calib_taps_ok(self, calibs) -> bool:
         """True iff every calib has z-free image-plane rows (host check on
-        the numpy calib), the net is orthographic and the ray-structured
-        queries are allowed. A perspective net never qualifies: its
-        z-divide moves (u, v) along every ray."""
-        if not self.config.ray.use_ray_query:
-            return False
+        the numpy calib) and the net is orthographic. A perspective net
+        never qualifies: its z-divide moves (u, v) along every ray."""
         if CN(self.netG.opt_net).projection != "orthogonal":
             return False
         c = np.asarray(calibs)
@@ -569,130 +536,6 @@ class ReconEngine:
                                    head_fn=self.point_c)[0].float()
         return self._recorded("query_color", self._shard_rows(query_color))
 
-    def _texture_canvas(self, maps: SurfaceMaps, resolution: int,
-                        color_grid=None, query_color=None,
-                        compact: Optional[float] = None,
-                        telemetry: Optional[list] = None,
-                        reuse: Optional[dict] = None) -> torch.Tensor:
-        """Texture canvas for both colour queries, on a window^2 lattice
-        over the subject's bbox when a window is set (resampled back: an
-        exact gather at stride 1, bilinear colours beyond).
-
-        ``color_grid`` (frontal frames): the separable grid query.
-        ``query_color`` (every other frame): the per-point query on the
-        same window lattice. ``compact``: per-point only; query just the
-        window pixels whose ray is valid, padded to this fraction of the
-        window lattice; the rest stay background white and are masked by
-        ``maps.valid`` anyway. ``reuse``: the last refine level's compact
-        state; the colour query runs at that level's gathered rays and
-        refined depths. World coordinates still step by 1/r here, not by
-        the refine's 1/(r-1). ``texture.stride`` > 1: a dense strided
-        lattice over the window span instead of the valid set."""
-        r = resolution
-        dev = maps.depth.device
-        b_min = _f32(self.recon.b_min, dev)
-        b_max = _f32(self.recon.b_max, dev)
-        sr = (b_max - b_min) / r
-        w = self.ray_window
-        stride = self.config.texture.stride
-        fr = torch.arange(r, dtype=torch.float32, device=dev)
-
-        def finish(color):
-            color = color * 0.5 + 0.5
-            return torch.where(maps.valid[..., None], color,
-                               torch.ones_like(color))
-
-        def from_window(color_w, x0, sx, y0, sy, n):
-            u = torch.clamp((fr - x0) / sx, 0.0, n - 1)
-            v = torch.clamp((fr - y0) / sy, 0.0, n - 1)
-            return finish(torch.stack([_sample_grid(color_w[..., k], u, v)
-                                       for k in range(3)], dim=-1))
-
-        def lattice_points(xw, yw, zw):
-            h, ww = zw.shape
-            return torch.stack([xw[:, None].expand(h, ww),
-                                yw[None, :].expand(h, ww), zw],
-                               dim=-1).reshape(1, -1, 3)
-
-        if w is None or w >= r:
-            if color_grid is not None:
-                return finish(color_grid(
-                    fr * sr[0] + b_min[0], fr * sr[1] + b_min[1],
-                    (float(r) - maps.depth) * sr[2] + b_min[2]))
-            return colorize(maps, query_color, r, self.recon.b_min,
-                            self.recon.b_max)
-        if stride > 1 and query_color is not None:
-            # dense strided lattice: no valid resample, no index set, no
-            # scatter (and no telemetry row: it cannot drop pixels)
-            if reuse is not None:
-                w = reuse["w"]
-                x0, sx, y0, sy = (reuse[k] for k in ("x0", "sx", "y0", "sy"))
-            else:
-                x0, sx = _axis_window(maps.valid.any(dim=1), r, r, 1.0, w)
-                y0, sy = _axis_window(maps.valid.any(dim=0), r, r, 1.0, w)
-            wc = max(2, w // stride)
-            sxc = sx * (w - 1) / (wc - 1)
-            syc = sy * (w - 1) / (wc - 1)
-            ar = torch.arange(wc, dtype=torch.float32, device=dev)
-            ac = x0 + ar * sxc
-            bc = y0 + ar * syc
-            depth_c = _sample_grid(maps.depth, ac, bc)
-            pts = lattice_points(ac * sr[0] + b_min[0], bc * sr[1] + b_min[1],
-                                 (float(r) - depth_c) * sr[2] + b_min[2])
-            color_c = query_color(pts)[0].reshape(wc, wc, 3)
-            return from_window(color_c, x0, sxc, y0, syc, wc)
-        if reuse is not None:
-            w = reuse["w"]
-            idx, safe = reuse["idx"], reuse["safe"]
-            if telemetry is not None:
-                # a ray dropped at the refine level loses its texture too
-                telemetry.append(reuse["dropped"])
-            xw = reuse["aw"] * sr[0] + b_min[0]
-            yw = reuse["bw"] * sr[1] + b_min[1]
-            zw_sel = (float(r) - reuse["z"]) * sr[2] + b_min[2]    # [K]
-            pts = torch.stack([xw[safe // w], yw[safe % w], zw_sel],
-                              dim=-1)[None]                        # [1, K, 3]
-            color_w = self._scatter_colors(query_color(pts)[0], idx, w)
-            return from_window(color_w, reuse["x0"], reuse["sx"],
-                               reuse["y0"], reuse["sy"], w)
-        x0, sx = _axis_window(maps.valid.any(dim=1), r, r, 1.0, w)
-        y0, sy = _axis_window(maps.valid.any(dim=0), r, r, 1.0, w)
-        ar = torch.arange(w, dtype=torch.float32, device=dev)
-        aw = x0 + ar * sx
-        bw = y0 + ar * sy
-        depth_w = _sample_grid(maps.depth, aw, bw)
-        xw = aw * sr[0] + b_min[0]
-        yw = bw * sr[1] + b_min[1]
-        zw = (float(r) - depth_w) * sr[2] + b_min[2]
-        budget = None if color_grid is not None else _compact_rays(compact,
-                                                                   w, w)
-        if color_grid is not None:
-            color_w = color_grid(xw, yw, zw)
-        elif budget:
-            v_w = _sample_grid(maps.valid.float(), aw, bw) > 0.0
-            if telemetry is not None:
-                # valid pixels beyond the budget keep the white background
-                telemetry.append(torch.clamp(
-                    v_w.sum(dtype=torch.int32) - budget, min=0))
-            idx = _valid_indices(v_w.reshape(-1), budget)
-            safe = torch.where(idx < w * w, idx, torch.zeros_like(idx))
-            pts = torch.stack([xw[safe // w], yw[safe % w],
-                               zw.reshape(-1)[safe]], dim=-1)[None]
-            color_w = self._scatter_colors(query_color(pts)[0], idx, w)
-        else:
-            color_w = query_color(lattice_points(xw, yw, zw))[0].reshape(
-                w, w, 3)
-        return from_window(color_w, x0, sx, y0, sy, w)
-
-    @staticmethod
-    def _scatter_colors(col: torch.Tensor, idx: torch.Tensor,
-                        w: int) -> torch.Tensor:
-        """Colours [K, 3] at the flat window indices ``idx`` on a white
-        [w, w, 3] lattice (fill entries of ``idx`` are dropped)."""
-        buf = torch.ones(w * w + 1, 3, dtype=col.dtype, device=col.device)
-        buf.index_put_((idx,), col)
-        return buf[:w * w].reshape(w, w, 3)
-
     @torch.no_grad()
     def frame(self, image_g: torch.Tensor,
               image_c: Optional[torch.Tensor] = None, calib=None,
@@ -759,7 +602,6 @@ class ReconEngine:
                compact: Optional[float], rot_k: tuple) -> dict:
         """``frame`` after its host plan: the backbones, the surface, the
         shading and the texture, each under its span."""
-        cfg = self.config
         dt = self.compute_dtype
         with profiling.span("backbone.netG") as sp:
             feats_g, mode = self.graphs.run(
@@ -786,9 +628,10 @@ class ReconEngine:
         vol, counts = None, []
         resolution = self.fine_res
         if march:
-            # volume-free: no hierarchy, no depth peel, no sdf
-            want_state = (cfg.texture.reuse_compact and not use_taps
-                          and self.netC is not None and image_c is not None)
+            # volume-free: no hierarchy, no depth peel, no sdf; a rotated
+            # frame's colour query reuses the last level's compaction
+            want_state = (not use_taps and self.netC is not None
+                          and image_c is not None)
             maps = ray_pyramid(
                 query_occ, self.fine_res, levels=self.march_levels,
                 taps=self.ray_taps, balance_value=self.recon.balance_value,
@@ -831,22 +674,22 @@ class ReconEngine:
                 # the f32 prior promotes the concatenated maps to f32, as
                 # in the JAX engine
                 feat_prior = feats_g[-1][-1]
-                upcast = not (cfg.texture.bf16 and not use_taps)
                 feats_c, mode = self.graphs.run(
-                    "netC", self._filter_c_f32 if upcast else self.netC.filter,
-                    (image_c, feat_prior), (dt, feat_prior.dtype),
-                    upcast=upcast and dt != torch.float32)
+                    "netC", self._filter_c_f32, (image_c, feat_prior),
+                    (dt, feat_prior.dtype), upcast=dt != torch.float32)
                 if sp is not None:
                     sp.attrs.update(graph=mode, **_backbone_attrs(self.netC,
                                                                   feats_c))
             with profiling.span("texture.query"):
+                lattice = (maps, resolution, self.recon.b_min,
+                           self.recon.b_max, self.ray_window)
                 if use_grid and self.head_c is not None:
-                    tex = self._texture_canvas(
-                        maps, resolution,
+                    tex = texture_canvas(
+                        *lattice,
                         color_grid=self._grid_color_fn(feats_c, calib_t))
                 else:
-                    tex = self._texture_canvas(
-                        maps, resolution,
+                    tex = texture_canvas(
+                        *lattice,
                         query_color=self._query_color_fn(feats_c, calib_t),
                         compact=compact, telemetry=telemetry,
                         reuse=tex_state[0] if tex_state else None)

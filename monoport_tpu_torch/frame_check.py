@@ -12,8 +12,10 @@ hierarchy (17, 33, 65, 129, 257) with budgets (0, 16384, 65536, 131072,
 on the committed weights, for the held-out capsule render of
 ``tests/test_trained_pipeline.py``; ``data/frame_golden_rotated.npz`` the
 same image seen by the orbit camera at ``ROTATED_POSE`` (``rotated_calib``),
-the rotated defaults of ``RotatedCfg`` / ``TextureCfg``, with the anchor
-plan and ``compact_dropped`` of that frame; ``data/frame_golden_dense.npz``
+the rotated defaults of ``RotatedCfg`` and the texture stage's one
+behaviour (upcast netC maps, the colour query on the last refine level's
+compaction, the plain colour head), with the anchor plan and
+``compact_dropped`` of that frame; ``data/frame_golden_dense.npz``
 the frontal frame of ``quality_config`` with its ``recon_counts`` and its
 257^3 volume ``sdf`` at every ``SDF_STRIDE``-th voxel (65^3), without the
 image, which is the frontal golden's (all written by

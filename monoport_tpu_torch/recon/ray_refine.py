@@ -21,7 +21,7 @@ and the dropped-ray counts stay device scalars.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -33,8 +33,35 @@ from ..utils import profiling
 from .depth_peel import SurfaceMaps, depth_peel
 
 
-def _f32(x, device) -> torch.Tensor:
+def f32_constant(x, device) -> torch.Tensor:
+    """The f32 vector ``x`` (a host sequence, e.g. a recon bound) as a
+    cached constant on ``device`` (``ops/constants.device_constant``)."""
     return device_constant(float_array, (tuple(x),), device, torch.float32)
+
+
+class RayCompaction(NamedTuple):
+    """The last refine level's compaction on its window, which a per-point
+    texture query reuses (``recon/texture.texture_canvas``). Built by
+    ``refine_from_maps`` alone; every tensor is on the device.
+
+    idx: [K] the gathered flat window indices, ascending, filled with w*w
+      (``valid_indices``); safe: idx with the fill entries at 0.
+    z: [K] the refined depth of each gathered ray, in fine voxels.
+    dropped: 0-d int32, the valid rays beyond the budget.
+    w: the window's side; x0 / sx, y0 / sy: its start and stride along
+      each axis in fine units (``axis_window``); aw / bw: [w] its ray
+      coordinates along each axis, in fine units."""
+    idx: torch.Tensor
+    safe: torch.Tensor
+    z: torch.Tensor
+    dropped: torch.Tensor
+    w: int
+    x0: torch.Tensor
+    sx: torch.Tensor
+    y0: torch.Tensor
+    sy: torch.Tensor
+    aw: torch.Tensor
+    bw: torch.Tensor
 
 
 def _tap_offsets(pad: int, taps: int) -> np.ndarray:
@@ -69,32 +96,30 @@ def _refine_core(query_fn: Callable | None, depth_f: torch.Tensor,
                  b_min, b_max, spacing=(1.0, 1.0),
                  query_taps_fn: Callable | None = None,
                  query_grid_fn: Callable | None = None,
-                 compact_budget: int | None = None,
-                 telemetry: list | None = None,
-                 compact_state: list | None = None) -> SurfaceMaps:
+                 budget: int | None = None,
+                 telemetry: list | None = None):
     """Fine pass over the outer-product ray grid ax [H] x by [W] with the
     upsampled coarse maps depth_f/valid_f [H, W]; ``spacing`` is the ray
-    pitch in fine units along each axis. ``compact_budget``: query only
-    the coarse-valid rays, padded to this static count
-    (``_refine_core_compact``, which also documents ``telemetry`` and
-    ``compact_state``); the grid path ignores it, its lattice must stay an
-    outer product."""
+    pitch in fine units along each axis. ``budget``: query only the
+    coarse-valid rays, padded to this static count
+    (``_refine_core_compact``, which also documents ``telemetry``); the
+    grid path ignores it, its lattice must stay an outer product.
+    -> (SurfaceMaps, the compact pass's gathered rays or None)."""
     dev = depth_f.device
     pad = math.ceil(scale) + 1
     offsets = device_constant(_tap_offsets, (pad, taps), dev, torch.float32)
-    b_min = _f32(b_min, dev)
-    step = (_f32(b_max, dev) - b_min) / (rf - 1)
+    b_min = f32_constant(b_min, dev)
+    step = (f32_constant(b_max, dev) - b_min) / (rf - 1)
     h, w = depth_f.shape
     xw1 = ax * step[0] + b_min[0]                               # [H]
     yw1 = by * step[1] + b_min[1]                               # [W]
 
-    if compact_budget and query_grid_fn is None:
+    if budget and query_grid_fn is None:
         return _refine_core_compact(query_fn, depth_f, valid_f, xw1, yw1,
                                     rf, offsets, balance_value, step, b_min,
-                                    spacing, compact_budget,
+                                    spacing, budget,
                                     query_taps_fn=query_taps_fn,
-                                    telemetry=telemetry,
-                                    compact_state=compact_state)
+                                    telemetry=telemetry)
 
     c_taps = torch.clamp(depth_f[..., None] + offsets, 0.0, rf - 1)
     # vol index i = rf-1-c; world z from it
@@ -109,7 +134,7 @@ def _refine_core(query_fn: Callable | None, depth_f: torch.Tensor,
     # the refined silhouette is the tap-verified one
     valid = hit & valid_f
     dvdz = (v1 - v2) / torch.clamp(c1 - c2, min=1e-6)
-    return _normals_from_maps(z, dvdz, v2 - v1, valid, h, w, spacing)
+    return _normals_from_maps(z, dvdz, v2 - v1, valid, h, w, spacing), None
 
 
 def _query_lattice(query_fn, query_taps_fn, query_grid_fn, xw1, yw1, wz):
@@ -128,7 +153,7 @@ def _query_lattice(query_fn, query_taps_fn, query_grid_fn, xw1, yw1, wz):
     return query_fn(pts.reshape(1, -1, 3))[0, :, 0].reshape(h, w, taps).float()
 
 
-def _valid_indices(flat_valid: torch.Tensor, budget: int) -> torch.Tensor:
+def valid_indices(flat_valid: torch.Tensor, budget: int) -> torch.Tensor:
     """The first ``budget`` indices at which ``flat_valid`` [n] is set,
     ascending, filled with n (``flatnonzero`` with a static size); no
     count reaches the host."""
@@ -148,8 +173,7 @@ def _refine_core_compact(query_fn: Callable | None, depth_f, valid_f, xw1,
                          yw1, rf: int, offsets, balance_value: float, step,
                          b_min, spacing, budget: int,
                          query_taps_fn: Callable | None = None,
-                         telemetry: list | None = None,
-                         compact_state: list | None = None) -> SurfaceMaps:
+                         telemetry: list | None = None):
     """Compacted fine pass: gather the coarse-valid rays (padded to
     ``budget``), query only their taps, scatter the crossings back onto
     the lattice. The ray batch rides ``query_taps_fn`` when given (the
@@ -159,19 +183,16 @@ def _refine_core_compact(query_fn: Callable | None, depth_f, valid_f, xw1,
     silhouette, never a hole.
     ``telemetry``: a list that receives the dropped-ray count (valid rays
     beyond the budget) as a 0-d int32 device tensor.
-    ``compact_state``: a list that receives the gathered index set and the
-    refined per-ray depth, so a per-point texture query can ride the same
-    compaction (``engine._texture_canvas`` ``reuse``)."""
+    -> (SurfaceMaps, (idx, safe, z, dropped)): the gathered index set,
+    its in-range copy, the refined per-ray depth and the dropped count,
+    from which ``refine_from_maps`` builds a ``RayCompaction``."""
     h, w = depth_f.shape
     n = h * w
     flat_valid = valid_f.reshape(-1)
-    dropped = None
-    if telemetry is not None or compact_state is not None:
-        dropped = torch.clamp(flat_valid.sum(dtype=torch.int32) - budget,
-                              min=0)
+    dropped = torch.clamp(flat_valid.sum(dtype=torch.int32) - budget, min=0)
     if telemetry is not None:
         telemetry.append(dropped)
-    idx = _valid_indices(flat_valid, budget)                     # [K]
+    idx = valid_indices(flat_valid, budget)                      # [K]
     sel_ok = idx < n
     safe = torch.where(sel_ok, idx, torch.zeros_like(idx))
     d_sel = depth_f.reshape(-1)[safe]                            # [K]
@@ -192,9 +213,6 @@ def _refine_core_compact(query_fn: Callable | None, depth_f, valid_f, xw1,
     z, hit, v1, v2, c1, c2 = _first_crossing(vals, c_taps, balance_value)
     z = torch.where(hit, torch.clamp(z, 0.0, float(rf)), d_sel)
     dvdz = (v1 - v2) / torch.clamp(c1 - c2, min=1e-6)
-    if compact_state is not None:
-        compact_state.append({"idx": idx, "safe": safe, "z": z,
-                              "dropped": dropped})
 
     # unqueried rays keep the coarse depth and a viewer-facing normal, and
     # on budget overflow only, the coarse silhouette instead of a hole
@@ -204,8 +222,8 @@ def _refine_core_compact(query_fn: Callable | None, depth_f, valid_f, xw1,
     dvdz_full = _scatter_rows(torch.zeros_like(depth_f), idx, dvdz)
     nz_full = _scatter_rows(torch.full_like(depth_f, -1.0), idx, v2 - v1)
     valid = torch.where(queried, hit_full, valid_f) & valid_f
-    return _normals_from_maps(z_full, dvdz_full, nz_full, valid, h, w,
-                              spacing)
+    return (_normals_from_maps(z_full, dvdz_full, nz_full, valid, h, w,
+                               spacing), (idx, safe, z, dropped))
 
 
 def ray_refine(query_fn: Callable | None, vol_coarse: torch.Tensor,
@@ -227,7 +245,7 @@ def ray_refine(query_fn: Callable | None, vol_coarse: torch.Tensor,
                             query_grid_fn=query_grid_fn)
 
 
-def _compact_rays(compact: float | None, h: int, w: int) -> int | None:
+def compact_budget(compact: float | None, h: int, w: int) -> int | None:
     """Ray budget of a compacted pass: ``compact`` x the lattice size,
     rounded up to a multiple of 256 (None / >= 1.0 -> dense)."""
     if not compact or compact >= 1.0:
@@ -284,10 +302,9 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
     subject's coarse bbox at stride >= 1; outside it the coarse maps stay.
     ``compact``: non-grid paths query just the coarse-valid rays, padded
     to a static budget of this fraction of the lattice; ``telemetry``
-    collects the dropped-ray counts. ``compact_state``: windowed compact
-    path only; receives the window geometry (x0/sx/y0/sy, the aw/bw axes
-    in fine units, w) with the core's gathered indices and refined
-    per-ray depth, for a texture query that reuses this compaction."""
+    collects the dropped-ray counts. ``compact_state``: a list that
+    receives this level's ``RayCompaction`` (windowed compact path only),
+    for a texture query that reuses this compaction."""
     with profiling.span("recon.refine", **{"from": rc, "to": fine_res}):
         rf = fine_res
         dev = coarse.depth.device
@@ -300,28 +317,26 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
                                 scale, balance_value, b_min, b_max,
                                 query_taps_fn=query_taps_fn,
                                 query_grid_fn=query_grid_fn,
-                                compact_budget=_compact_rays(compact, rf, rf),
-                                telemetry=telemetry)
+                                budget=compact_budget(compact, rf, rf),
+                                telemetry=telemetry)[0]
 
-        x0, sx = _axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
-        y0, sy = _axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
+        x0, sx = axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
+        y0, sy = axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
         ar_w = torch.arange(window, dtype=torch.float32, device=dev)
         aw = x0 + ar_w * sx
         bw = y0 + ar_w * sy
-        d_w = _sample_grid(depth_f, aw, bw)
-        v_w = _sample_grid(valid_f.float(), aw, bw) > 0.0
-        core_state: list | None = [] if compact_state is not None else None
-        maps_w = _refine_core(query_fn, d_w, v_w, aw, bw, rf, taps, scale,
-                              balance_value, b_min, b_max, spacing=(sx, sy),
-                              query_taps_fn=query_taps_fn,
-                              query_grid_fn=query_grid_fn,
-                              compact_budget=_compact_rays(compact, window,
-                                                           window),
-                              telemetry=telemetry, compact_state=core_state)
-        if core_state:
-            compact_state.append({**core_state[0], "w": window, "x0": x0,
-                                  "sx": sx, "y0": y0, "sy": sy, "aw": aw,
-                                  "bw": bw})
+        d_w = sample_grid(depth_f, aw, bw)
+        v_w = sample_grid(valid_f.float(), aw, bw) > 0.0
+        maps_w, gathered = _refine_core(
+            query_fn, d_w, v_w, aw, bw, rf, taps, scale, balance_value,
+            b_min, b_max, spacing=(sx, sy), query_taps_fn=query_taps_fn,
+            query_grid_fn=query_grid_fn,
+            budget=compact_budget(compact, window, window),
+            telemetry=telemetry)
+        if compact_state is not None and gathered is not None:
+            compact_state.append(RayCompaction(*gathered, w=window, x0=x0,
+                                               sx=sx, y0=y0, sy=sy, aw=aw,
+                                               bw=bw))
 
         # resample the refined window back onto the full fine grid (an exact
         # gather at stride 1); outside the window keep the coarse maps
@@ -332,22 +347,22 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
                   & ((v >= 0) & (v <= window - 1))[None, :])
         uc = torch.clamp(u, 0.0, window - 1)
         vc = torch.clamp(v, 0.0, window - 1)
-        depth = torch.where(inside, _sample_grid(maps_w.depth, uc, vc),
+        depth = torch.where(inside, sample_grid(maps_w.depth, uc, vc),
                             depth_f)
         norm_fallback = torch.zeros(rf, rf, 3, device=dev)
         norm_fallback[..., 2] = -1.0
-        norm_w = torch.stack([_sample_grid(maps_w.normal[..., k], uc, vc)
+        norm_w = torch.stack([sample_grid(maps_w.normal[..., k], uc, vc)
                               for k in range(3)], dim=-1)
         norm_w = norm_w / torch.clamp(torch.linalg.vector_norm(
             norm_w, dim=-1, keepdim=True), min=1e-9)
         norm = torch.where(inside[..., None], norm_w, norm_fallback)
-        valid_w = _sample_grid(maps_w.valid.float(), uc, vc) > 0.5
+        valid_w = sample_grid(maps_w.valid.float(), uc, vc) > 0.5
         valid = torch.where(inside, valid_w, valid_f)
         return SurfaceMaps(depth=depth, normal=norm, valid=valid)
 
 
-def _axis_window(any_valid: torch.Tensor, rc: int, rf: int, scale: float,
-                 window: int):
+def axis_window(any_valid: torch.Tensor, rc: int, rf: int, scale: float,
+                window: int):
     """Start (fine units, snapped to the stride lattice) and stride for one
     window axis, covering the subject's coarse-valid extent with margin.
     Both are 0-d device tensors: no host sync."""
@@ -379,8 +394,8 @@ def ray_march(query_fn: Callable | None, res: int, balance_value: float = 0.5,
     """Dense first-crossing march: res^2 frontal rays x res z-taps ->
     SurfaceMaps with depth in res-voxel units."""
     device = torch.device(device or "cpu")
-    b_min = _f32(b_min, device)
-    step = (_f32(b_max, device) - b_min) / (res - 1)
+    b_min = f32_constant(b_min, device)
+    step = (f32_constant(b_max, device) - b_min) / (res - 1)
     a = torch.arange(res, dtype=torch.float32, device=device)
     c_taps = a.expand(res, res, res)                          # [R, R, T]
     wz = ((res - 1) - c_taps) * step[2] + b_min[2]
@@ -418,7 +433,9 @@ def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
     ``query_taps_fn`` may be a sequence of one fn (or None) per refine
     level (len(levels) entries: levels[0]->levels[1], ...,
     levels[-1]->fine_res): the anchored query picks its anchor count per
-    level, and a level without one runs exact per-point."""
+    level, and a level without one runs exact per-point.
+    ``compact_state``: a list that receives the last level's
+    ``RayCompaction`` when that level is windowed and compacted."""
     if isinstance(query_taps_fn, (list, tuple)):
         if march_taps:
             raise ValueError("per-level taps fns are refine-only (the march "
@@ -447,8 +464,8 @@ def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
                             telemetry=telemetry, compact_state=compact_state)
 
 
-def _sample_grid(img: torch.Tensor, xi: torch.Tensor,
-                 yi: torch.Tensor) -> torch.Tensor:
+def sample_grid(img: torch.Tensor, xi: torch.Tensor,
+                yi: torch.Tensor) -> torch.Tensor:
     """Separable bilinear sample of img [H, W] at the outer-product grid
     xi [h] x yi [w] (float indices, assumed in range) -> [h, w]."""
     h, w = img.shape

@@ -6,7 +6,7 @@ CPU, f32:
   through the anchored MLP (``apply_anchor`` / ``apply_anchor_xla``), and
   the identities the JAX tests hold (frontal calib = ``query_taps``;
   features linear in uv are exact);
-* the compacted refine (``_compact_rays``, ``refine_from_maps(compact=)``,
+* the compacted refine (``compact_budget``, ``refine_from_maps(compact=)``,
   ``ray_pyramid`` with a per-level fn list) on an analytic sphere, windowed
   and not, with an overflowing budget;
 * the host-side planner and budget helpers vs the JAX engine;
@@ -39,7 +39,7 @@ from monoport_tpu_torch import frame_check, weights
 from monoport_tpu_torch import engine as tengine
 from monoport_tpu_torch.config import CN
 from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
-                                       RotatedCfg, TextureCfg)
+                                       RotatedCfg)
 from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
 from monoport_tpu_torch.recon import ray_refine as trr
 from monoport_tpu_torch.recon.hierarchy import HierarchicalRecon
@@ -231,10 +231,10 @@ def test_compact_budget_sizing():
     for compact, h, w in ((None, 33, 33), (1.0, 33, 33), (0.625, 33, 33),
                           (0.99, 16, 16), (0.5, 192, 192), (0.5, 65, 65),
                           (0.05, 24, 24)):
-        assert trr._compact_rays(compact, h, w) == jrr._compact_rays(
+        assert trr.compact_budget(compact, h, w) == jrr._compact_rays(
             compact, h, w)
-    assert trr._compact_rays(0.5, 192, 192) == 18432
-    assert trr._compact_rays(0.5, 65, 65) == 2304
+    assert trr.compact_budget(0.5, 192, 192) == 18432
+    assert trr.compact_budget(0.5, 65, 65) == 2304
 
 
 def test_valid_indices_is_a_static_flatnonzero():
@@ -242,7 +242,7 @@ def test_valid_indices_is_a_static_flatnonzero():
     valid = rng.rand(97) > 0.6
     for budget in (8, int(valid.sum()), 64, 97):
         want = jnp.flatnonzero(jnp.asarray(valid), size=budget, fill_value=97)
-        got = trr._valid_indices(torch.from_numpy(valid), budget)
+        got = trr.valid_indices(torch.from_numpy(valid), budget)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -271,13 +271,17 @@ def test_compact_pyramid_matches_jax(compact, window, per_level):
     assert (int(tt[-1]) > 0) == (compact == 0.05)
     assert len(tstate) == len(jstate) == (1 if window else 0)
     if window:
-        assert set(tstate[0]) == set(jstate[0])
+        rec, jrec = tstate[0], jstate[0]
+        assert isinstance(rec, trr.RayCompaction)
+        assert set(rec._fields) == set(jrec)
         for key in ("idx", "safe"):
-            np.testing.assert_array_equal(tstate[0][key].numpy(),
-                                          np.asarray(jstate[0][key]))
-        np.testing.assert_allclose(tstate[0]["z"].numpy(),
-                                   np.asarray(jstate[0]["z"]), atol=2e-4)
-        assert int(tstate[0]["dropped"]) == int(jstate[0]["dropped"])
+            np.testing.assert_array_equal(getattr(rec, key).numpy(),
+                                          np.asarray(jrec[key]))
+        for key in ("z", "x0", "sx", "y0", "sy", "aw", "bw"):
+            np.testing.assert_allclose(getattr(rec, key).numpy(),
+                                       np.asarray(jrec[key]), atol=2e-4)
+        assert int(rec.dropped) == int(jrec["dropped"])
+        assert rec.w == jrec["w"] == window
     if compact == 0.05:
         dense = trr.ray_pyramid(tocc, 33, levels=(9, 17), taps=4,
                                 window=window)
@@ -323,15 +327,10 @@ def _engines(setup, persp=False, **flat):
         render_size=kw["render_size"],
         ray=RayCfg(mode=kw["mode"], fine_res=kw["fine_res"],
                    taps=kw["ray_taps"], window=kw["ray_window"],
-                   march_levels=kw["march_levels"],
-                   use_ray_query=kw.get("use_ray_query", True)),
+                   march_levels=kw["march_levels"]),
         rotated=RotatedCfg(compact=kw["compact_rotated"],
                            anchors=kw.get("rot_anchors", "auto"),
-                           anchor_texels=kw.get("rot_anchor_texels", 1.5)),
-        texture=TextureCfg(reuse_compact=kw.get("tex_reuse_compact", True),
-                           stride=kw.get("tex_stride", 1),
-                           bf16=kw.get("tex_bf16", False),
-                           pallas_head=kw.get("tex_pallas_head", False)))
+                           anchor_texels=kw.get("rot_anchor_texels", 1.5)))
     teng = ReconEngine(tg, tc, recon=HierarchicalRecon(resolutions=(9, 17),
                                                        budgets=(0, 2048)),
                        config=cfg, device="cpu")
@@ -394,15 +393,9 @@ FRAMES = {
     "anchors2": (dict(rot_anchors=2), ROT_CALIB),
     "per_point": (dict(rot_anchors=None), ROT_CALIB),
     "auto_plan": (dict(), ROT_CALIB),
-    "tex_stride2": (dict(rot_anchors=2, tex_stride=2), ROT_CALIB),
-    "no_reuse": (dict(rot_anchors=2, tex_reuse_compact=False), ROT_CALIB),
     "overflow": (dict(rot_anchors=2, compact_rotated=0.3), ROT_CALIB),
     "inplane_taps": (dict(), INPLANE_CALIB),
     "dense_rotated": (dict(rot_anchors=2, compact_rotated=None), ROT_CALIB),
-    "no_ray_query": (dict(use_ray_query=False),
-                     np.eye(4, dtype=np.float32)[None]),
-    "tex_kernel_head": (dict(rot_anchors=2, tex_pallas_head=True), ROT_CALIB),
-    "tex_bf16": (dict(rot_anchors=2, tex_bf16=True), ROT_CALIB),
 }
 
 
@@ -445,7 +438,7 @@ def test_rotated_frame_matches_jax_engine(setup, name):
     assert dropped.dtype == torch.int32
     np.testing.assert_array_equal(dropped.numpy(),
                                   np.asarray(want["compact_dropped"]))
-    assert dropped.shape[0] == (2 if name == "tex_stride2" else 3)
+    assert dropped.shape[0] == 3
     assert bool(dropped.any()) == (name == "overflow")
     assert teng.compact_report(got) == jeng.compact_report(want)
 

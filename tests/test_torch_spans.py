@@ -38,7 +38,7 @@ from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
 from monoport_tpu_torch.models import MonoPortNet
 from monoport_tpu_torch.models.monoport_net import head_channels_for
 from monoport_tpu_torch.recon.hierarchy import HierarchicalRecon
-from monoport_tpu_torch.recon.ray_refine import _compact_rays
+from monoport_tpu_torch.recon.ray_refine import compact_budget
 from monoport_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
@@ -168,8 +168,8 @@ def test_rotated_query_rows_are_the_query_shapes(nets, hint):
     rec, _ = _recorded(eng, nets, ROT_CALIB, hint)
     rung = rec.spans[0].attrs["rung"]
     plan = eng._rot_anchor_plan(ROT_CALIB, 64)
-    b17 = _compact_rays(rung, 17, 17)
-    bw = _compact_rays(rung, WINDOW, WINDOW)
+    b17 = compact_budget(rung, 17, 17)
+    bw = compact_budget(rung, WINDOW, WINDOW)
     want = [("query_occ", 9 ** 3, 1, 0, "recon.march")]
     for k, budget in zip(plan, (b17, bw)):
         want.append(("query_anchored", budget, TAPS, k, "recon.refine") if k

@@ -25,12 +25,15 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 OBJ_FILES = sorted(glob.glob(os.path.join(ROOT, "monoport_tpu", "data",
                                           "**", "*.obj"), recursive=True))
 
-# a value off the default for every knob the two packages share
+# a value off the default for every knob the port maps
 KNOBS = {"render_size": 128, "direction": "back", "mode": "ray",
          "fine_res": 129, "ray_taps": 4, "ray_window": 96,
-         "march_levels": (17, 33), "use_ray_query": False,
-         "march_rotated": False, "compact_rotated": 0.375,
-         "rot_anchors": 3, "rot_anchor_texels": 2.0, "tex_bf16": True,
+         "march_levels": (17, 33), "march_rotated": False,
+         "compact_rotated": 0.375, "rot_anchors": 3,
+         "rot_anchor_texels": 2.0}
+# a value other than the port's one, for every knob it takes at one value
+OTHER = {"use_pallas": False, "pallas_interpret": True,
+         "use_ray_query": False, "tex_bf16": True,
          "tex_reuse_compact": False, "tex_stride": 2,
          "tex_pallas_head": True}
 
@@ -51,9 +54,13 @@ def _only(name, value):
 
 
 def test_flat_knobs_match_jax():
-    assert engine._FLAT == JaxEngineCfg._FLAT
-    assert set(KNOBS) | {"compute_dtype", "use_pallas",
-                         "pallas_interpret"} == set(engine._FLAT)
+    assert set(engine._FLAT) | set(engine._FIXED_KNOBS) == set(
+        JaxEngineCfg._FLAT)
+    assert not set(engine._FLAT) & set(engine._FIXED_KNOBS)
+    for name, where in engine._FLAT.items():
+        assert JaxEngineCfg._FLAT[name] == where, name
+    assert set(KNOBS) | {"compute_dtype"} == set(engine._FLAT)
+    assert set(OTHER) == set(engine._FIXED_KNOBS)
     for name, value in KNOBS.items():
         got = EngineCfg.flat(**{name: value})
         want = JaxEngineCfg.flat(**{name: value})
@@ -66,21 +73,38 @@ def test_flat_knobs_match_jax():
     jboth = JaxEngineCfg.flat(**KNOBS, compute_dtype=jnp.bfloat16,
                               use_pallas=True, pallas_interpret=False)
     assert both.compute_dtype == torch.bfloat16
-    for group in ("ray", "rotated", "texture"):
-        assert dataclasses.asdict(getattr(both, group)) == \
-            dataclasses.asdict(getattr(jboth, group)), group
+    for group in ("ray", "rotated"):
+        # JAX's group is the port's plus its fixed knobs at their one value
+        fixed = {JaxEngineCfg._FLAT[n][1]: v
+                 for n, v in engine._FIXED_KNOBS.items()
+                 if (JaxEngineCfg._FLAT[n] or (None,))[0] == group}
+        assert dataclasses.asdict(getattr(jboth, group)) == {
+            **dataclasses.asdict(getattr(both, group)), **fixed}, group
     assert (both.render_size, both.direction) == (jboth.render_size,
                                                   jboth.direction)
     assert EngineCfg.flat() == EngineCfg()
 
 
-def test_flat_refuses_what_the_port_does_not_do():
-    with pytest.raises(KeyError):
-        EngineCfg.flat(no_such_knob=1)
-    with pytest.raises(ValueError, match="always run on the card"):
-        EngineCfg.flat(use_pallas=False)
-    with pytest.raises(ValueError, match="always run on the card"):
-        EngineCfg.flat(pallas_interpret=True)
+@pytest.mark.parametrize("name", sorted(OTHER) + ["no_such_knob"])
+def test_flat_refuses_what_the_port_does_not_do(name):
+    """A knob the port takes at one value: that value is JAX's default
+    (``use_pallas`` aside: JAX's default is its XLA route, and the port's
+    kernels always run) and builds the default config; any other raises,
+    naming the knob and the one value. An unknown name raises KeyError."""
+    if name == "no_such_knob":
+        with pytest.raises(KeyError):
+            EngineCfg.flat(no_such_knob=1)
+        return
+    value = engine._FIXED_KNOBS[name]
+    jax_default = _value(JaxEngineCfg(), name, JaxEngineCfg._FLAT)
+    if name == "use_pallas":
+        assert (jax_default, value) == (False, True)
+    else:
+        assert jax_default == value, name
+    assert EngineCfg.flat(**{name: value}) == EngineCfg()
+    with pytest.raises(ValueError,
+                       match=f"{name}={OTHER[name]!r}: .*{name}={value!r}"):
+        EngineCfg.flat(**{name: OTHER[name]})
 
 
 def test_compile_cache_directory_priority(tmp_path, monkeypatch):
