@@ -216,17 +216,21 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     loader worker fails the phase): losses finite and falling, the resume
     exact, none of our kernels launched in a step, the trained nets' bf16
     frame exactly 4 ray-MLP launches.
-20. graphs (after phase 5): the backbone calls replayed from CUDA graphs
-    (``backbone_graphs``), on the committed hg4 nets and the seeded
-    multi-level HRNet netG of phase 12, each in a bf16 real-time engine
-    of its own (``frame_check.replay_check``): frontal frames of the
-    golden image, its mirror and the image again, each backbone call
-    (netG; netC over the prior it was given) bit-equal to the eager call
-    on its inputs; the frontal and the rotated frame bit-equal to the same
-    frame with the graphs off; one capture a signature; no stream sync in
-    a replaying frame. Phase 11 also holds the served engine's backbone
-    calls to one capture a signature and replays after (the capture runs
-    in the device stage's thread).
+20. graphs (after phase 5): the backbone calls and the march pyramid's
+    stages replayed from CUDA graphs (``frame_graphs``), on the committed
+    hg4 nets and the seeded multi-level HRNet netG of phase 12, each in a
+    bf16 real-time engine of its own (``frame_check.replay_check``):
+    frontal frames of the golden image, its mirror and the image again,
+    each graphed call (netG; netC over the prior it was given; each stage
+    over the maps and calib it was given) bit-equal to the eager call on
+    its inputs; then twice over, the golden image and its mirror at each
+    march path (the frontal grid, the in-plane ray taps, the rotated pose
+    at each rung under the 0.5 ceiling), each frame bit-equal to the same
+    frame with the graphs off, each returned depth and valid unchanged
+    after the next frame; one capture a signature; no stream sync in a
+    replaying frame. Phase 11 also holds the served engine's backbone
+    calls to one capture a signature and replays after, and its stages to
+    one a key (the capture runs in the device stage's thread).
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -949,8 +953,8 @@ def rotated_expect(plan: tuple) -> dict:
 
 
 def graphs_phase(netG, netC, card: str) -> None:
-    """Phase 20: the backbone graphs against the eager calls, hg4 and the
-    multi-level HRNet netG."""
+    """Phase 20: the backbone and pyramid-stage graphs against the eager
+    calls, hg4 and the multi-level HRNet netG."""
     import torch
 
     from monoport_tpu_torch import frame_check
@@ -963,24 +967,26 @@ def graphs_phase(netG, netC, card: str) -> None:
     hrnet = build_net(CN(helper.alt_netg_opts(imf)),
                       helper.alt_netg_state(imf), "cuda")
     image = torch.from_numpy(frame_check.load_golden()["image"]).cuda()
+    mirror = torch.flip(image, dims=(2,))
     calib = frame_check.rotated_calib()
     for name, g, c in (("hg4", netG, netC), (imf, hrnet, None)):
         recon, cfg = frame_check.rtl_config(torch.bfloat16)
         eng = ReconEngine(g, c, recon=recon, config=cfg)
-        res = frame_check.replay_check(
-            eng, [image, torch.flip(image, dims=(2,)), image], [None, calib])
+        res = frame_check.replay_check(eng, [image, mirror, image],
+                                       frame_check.replay_cases())
         syncs = find_syncs(lambda: eng.frame(image, image, calib))
         torch.cuda.synchronize()
         nets = ["netG"] if c is None else ["netG", "netC"]
         emit({"phase": "graphs", "nets": name, **res,
               "replay_syncs": len(syncs), "card": card})
         if not res["ok"]:
-            fail(f"{name}: a replayed backbone call or frame differs from "
-                 f"the eager one: {res}")
-        if res["signatures"] != len(nets) or any(
-                res["counts"][n]["capture"] != 1 for n in nets):
-            fail(f"{name}: captures {res['counts']} over "
-                 f"{res['signatures']} signatures, expected one a net")
+            fail(f"{name}: a replayed call or frame differs from the eager "
+                 f"one, or a frame's output changed after the next: {res}")
+        if any(res["keys"].get(n) != 1 for n in nets) or any(
+                res["counts"][n]["capture"] != res["keys"][n]
+                for n in res["keys"]):
+            fail(f"{name}: captures {res['counts']} over the keys "
+                 f"{res['keys']}, expected one a key and one a net")
         if syncs:
             fail(f"{name}: a replaying frame synchronised the stream at "
                  f"{syncs}")
@@ -1065,19 +1071,29 @@ def frame_phases(netG, netC, counters: dict, card: str) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the engine's MLPs take their plain versions on the card."""
-    from monoport_tpu_torch import engine
+    """Inside, the engine's MLPs take their plain versions on the card, and
+    every graphed call runs eagerly (a graph replays the kernels it
+    captured)."""
+    from monoport_tpu_torch import engine, frame_graphs
     from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
     from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
 
     kept = (engine.apply_ray, engine.apply_anchor, engine.apply_mlp)
+    run = frame_graphs.FrameGraphs.run
+
+    def eager(self, name, fn, inputs, dtypes=None, extra=None,
+              capture=True):
+        return run(self, name, fn, inputs, dtypes, extra, capture=False)
+
     engine.apply_ray = tray.apply_ray_plain
     engine.apply_anchor = tray.apply_anchor_plain
     engine.apply_mlp = tmlp.apply_mlp_plain
+    frame_graphs.FrameGraphs.run = eager
     try:
         yield
     finally:
         engine.apply_ray, engine.apply_anchor, engine.apply_mlp = kept
+        frame_graphs.FrameGraphs.run = run
 
 
 def mlp_calls(kernels: list) -> dict:
@@ -2064,14 +2080,21 @@ def serve_phase(counters: dict, card: str) -> dict:
         if launches != expect:
             fail(f"the served frames launched {launches}, their poses' "
                  f"plans imply {expect}")
+        # the backbones a call a frame, the march pyramid's stages one a
+        # level and the march; none eager, one capture a signature
         graphs = {k: dict(v) for k, v in eng.graphs.counts.items()}
-        if any(v["eager"] or v["capture"] + v["replay"] != n
-               for v in graphs.values()) or len(eng.graphs._graphs) != sum(
+        calls = {k: n * (1 + len(eng.march_levels) if k == "recon" else 1)
+                 for k in graphs}
+        if any(v["eager"] or v["capture"] + v["replay"] != calls[k]
+               for k, v in graphs.items()) or len(eng.graphs._graphs) != sum(
                    v["capture"] for v in graphs.values()):
-            fail(f"the served engine's backbone calls by mode {graphs}, "
+            fail(f"the served engine's graphed calls by mode {graphs}, "
                  f"{len(eng.graphs._graphs)} signatures")
         segment, device_frame, _ = pipeline.processors
         d = segment(frame)
+        # the next pose may take a stage key of its own, whose capture
+        # synchronises: check its replay
+        device_frame(dict(d))
         torch.cuda.synchronize()
         syncs = find_syncs(lambda: device_frame(d))
         if syncs:
@@ -2119,7 +2142,7 @@ def serve_phase(counters: dict, card: str) -> dict:
           "jpeg_ms_median": statistics.median(d["jpeg_ms"] for d in served),
           "jpeg_bytes": len(parts[0]), "anchor_plans": plans,
           "launches": launches, "launches_expected": expect,
-          "device_stage_syncs": len(syncs), "backbone_graphs": graphs,
+          "device_stage_syncs": len(syncs), "graphs": graphs,
           "matte_max_diff": matte, "bbox": box,
           "golden_bbox": golden["bbox"].tolist(), **res,
           "limits": limits._asdict(), "card": card})

@@ -74,20 +74,29 @@ off on the card: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False, as ``chip_smoke.py`` sets them.
 
 On the card each backbone call (netG's ``filter`` and upcast, netC's
-``filter`` over the prior and its upcast) is captured into a CUDA graph in
+``filter`` over the prior and its upcast) and each stage of the march
+pyramid (the march, each refine level) is captured into a CUDA graph in
 the first frame of its signature and replayed in every later one
-(``backbone_graphs.py``): one input copy and one graph launch where the
-eager call launches ~1,000 kernels, bit-equal to it. Its span carries
-``graph`` = ``capture`` | ``replay`` | ``eager`` beside the backbone's
-``imf`` and the queried ``stage``'s map shapes, and ``self.graphs.counts``
-counts each net's calls by mode. The outputs are graph-pool tensors that
-the next frame overwrites; no output of ``frame`` aliases them.
+(``frame_graphs.py``): one copy of the image or the calib and one graph
+launch where the eager call launches hundreds to ~1,000 kernels,
+bit-equal to it. A stage's signature is what the host plan selects for it
+(``stage_key``: the stage, the path, the window, the compaction rung, the
+anchor count) and its inputs' shapes; it reads netG's maps and the
+previous stage's maps in place. Hierarchy and peel frames, and the stages
+of an engine whose mesh shards the rows, stay eager. Each such span
+carries ``graph`` = ``capture`` | ``replay`` | ``eager`` (a backbone's
+beside its ``imf`` and the queried ``stage``'s map shapes), and
+``self.graphs.counts`` counts the calls of netG, netC and the stages
+(``recon``) by mode. The outputs are graph-pool tensors that the next
+frame overwrites; ``frame`` returns copies of the last stage's depth and
+valid, and no output of it aliases them.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -95,7 +104,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .backbone_graphs import BackboneGraphs
+from .frame_graphs import FrameGraphs, leaves
 from .config import CN
 from .models import MonoPortNet
 from .ops.constants import upload_async
@@ -103,9 +112,11 @@ from .ops.cuda.fused_mlp import apply_mlp, pack_mlp_params
 from .ops.cuda.fused_ray_mlp import (apply_anchor, apply_ray,
                                      pack_ray_mlp_params)
 from .parallel.mesh import POINT_AXIS, Mesh, check_mesh
-from .recon.depth_peel import depth_peel, shade_normal, visualize
+from .recon.depth_peel import (SurfaceMaps, depth_peel, shade_normal,
+                               visualize)
 from .recon.hierarchy import HierarchicalRecon
-from .recon.ray_refine import ray_pyramid, ray_refine
+from .recon.ray_refine import (PyramidStage, pyramid_stages, ray_refine,
+                               run_stage)
 from .recon.texture import texture_canvas
 from .utils import profiling
 from .weights import resolve_device
@@ -127,6 +138,15 @@ def _backbone_attrs(net: MonoPortNet, feats) -> dict:
     (the last), from shapes alone."""
     return {"imf": net.opt_net.backbone.IMF,
             "stage": [list(f.shape[1:]) for f in feats[-1]]}
+
+
+def stage_key(stage: PyramidStage, path: str, rung: Optional[float],
+              anchors: int) -> tuple:
+    """The host values a march-pyramid stage's work follows, for its
+    graph's key beside its inputs' shapes and dtypes: the stage (march, or
+    the refine ``rc -> rf``), the frame's path, the stage's window, its
+    compaction rung (None: dense) and its anchor count (0: none)."""
+    return (stage.rc, stage.rf, path, stage.window, rung, anchors)
 
 
 def _snap_budget(hint: float, ceiling: float) -> float:
@@ -318,9 +338,10 @@ class ReconEngine:
         # the grid queries' heads take this rank's share of the rays
         self.grid_g = self._shard_rows(self.head_g)
         self.grid_c = self._shard_rows(self.head_c)
-        # the backbone calls, replayed from a CUDA graph a signature on
-        # the card (each rank of a mesh captures its own)
-        self.graphs = BackboneGraphs(self.device)
+        # the backbone calls and the march pyramid's stages, replayed from
+        # a CUDA graph a signature on the card (each rank of a mesh
+        # captures its own backbones)
+        self.graphs = FrameGraphs(self.device)
 
     def _shard_rows(self, fn):
         """``fn`` (tensors [B, R, ...] -> a tensor [B, R, ...], a map over
@@ -536,6 +557,91 @@ class ReconEngine:
                                    head_fn=self.point_c)[0].float()
         return self._recorded("query_color", self._shard_rows(query_color))
 
+    def _anchors(self, ray_g: bool, rot_k: tuple, level: int) -> int:
+        """The anchor count of refine level ``level``'s query: the plan's K
+        on the anchored rotated path, else 0 (the ray taps, or exact per
+        point)."""
+        if ray_g or self.anchor_g is None or not rot_k:
+            return 0
+        return rot_k[level] or 0
+
+    def _level_taps_fn(self, feats, calib, ray_g: bool, anchors: int):
+        """A refine level's ray query: the ray taps, the anchored query of
+        ``anchors`` anchors, or None (exact per point)."""
+        if ray_g:
+            return self._query_taps_fn(feats, calib)
+        if anchors:
+            return self._query_anchored_fn(feats, calib, anchors)
+        return None
+
+    def _march(self, feats_g, calib_t, path: str, compact: Optional[float],
+               rot_k: tuple) -> tuple:
+        """The march pyramid (``ray_pyramid``), a stage at a time under the
+        stage's span, each stage one call of ``self.graphs`` (name
+        ``recon``; span attribute ``graph``): replayed from a graph on the
+        card, eager elsewhere and on a mesh that shards the rows. A stage
+        reads the calib (copied into its graph's buffer), netG's maps and
+        the previous stage's maps (graph outputs, read in place); its key
+        is what the host plan selects (``stage_key``). -> (SurfaceMaps,
+        the dropped-ray counts, [the last level's RayCompaction] or []).
+        The returned depth and valid are copies out of the graph's pool,
+        which the next frame overwrites."""
+        ray_g = path in ("grid", "taps")
+        sharded = (self.mesh is not None
+                   and self.mesh.shape[POINT_AXIS] > 1)
+        feat_leaves = leaves(feats_g)
+        sizes = [len(fs) for fs in feats_g]
+        stages = pyramid_stages(self.march_levels, self.fine_res,
+                                self.ray_window)
+        maps, telemetry, state = None, [], []
+        for stage in stages:
+            # the march runs the taps or exact per point (the anchored
+            # lerp holds only over a refine level's short tap span)
+            k = 0 if stage.rc is None else self._anchors(ray_g, rot_k,
+                                                         stage.level)
+            rung = None if stage.rc is None else compact
+            prev = () if maps is None else tuple(maps)
+            fn = functools.partial(self._stage, stage, path, rung, k, sizes,
+                                   len(prev))
+            name, attrs = stage.span()
+            with profiling.span(name, **attrs) as sp:
+                (maps, dropped, comp), mode = self.graphs.run(
+                    "recon", fn, (calib_t,) + prev + tuple(feat_leaves),
+                    extra=stage_key(stage, path, rung, k),
+                    capture=not sharded)
+                if stage is stages[-1] and mode != "eager":
+                    maps = maps._replace(depth=maps.depth.clone(),
+                                         valid=maps.valid.clone())
+                if sp is not None:
+                    sp.attrs["graph"] = mode
+            telemetry += dropped
+            state += comp
+        return maps, telemetry, state
+
+    def _stage(self, stage: PyramidStage, path: str, rung: Optional[float],
+               anchors: int, sizes: list, n_prev: int, calib, *tensors):
+        """One pyramid stage over the calib, the previous stage's maps
+        (``n_prev`` tensors) and netG's maps (stages of ``sizes`` maps),
+        its queries built over these very tensors (the graph's) ->
+        (SurfaceMaps, [dropped counts], [RayCompaction])."""
+        prev, flat = tensors[:n_prev], tensors[n_prev:]
+        feats, i = [], 0
+        for n in sizes:
+            feats.append(list(flat[i:i + n]))
+            i += n
+        ray_g = path in ("grid", "taps")
+        telemetry: list = []
+        state: list = []
+        maps = run_stage(
+            stage, SurfaceMaps(*prev) if prev else None,
+            self._query_occ_fn(feats, calib),
+            self._level_taps_fn(feats, calib, ray_g, anchors),
+            self._query_grid_fn(feats, calib) if path == "grid" else None,
+            taps=self.ray_taps, balance_value=self.recon.balance_value,
+            b_min=self.recon.b_min, b_max=self.recon.b_max, compact=rung,
+            telemetry=telemetry, compact_state=state, device=self.device)
+        return maps, telemetry, state
+
     @torch.no_grad()
     def frame(self, image_g: torch.Tensor,
               image_c: Optional[torch.Tensor] = None, calib=None,
@@ -606,23 +712,11 @@ class ReconEngine:
         with profiling.span("backbone.netG") as sp:
             feats_g, mode = self.graphs.run(
                 "netG", self._filter_g, (image_g,), (dt,),
-                upcast=dt != torch.float32)
+                extra=dt != torch.float32)
             if sp is not None:
                 sp.attrs.update(graph=mode, **_backbone_attrs(self.netG,
                                                               feats_g))
 
-        if ray_g:
-            taps_fns = self._query_taps_fn(feats_g, calib_t)
-        elif self.anchor_g is not None and any(rot_k):
-            # anchored ray query per refine level, K from the host-side
-            # plan; the dense march stays per-point (full-volume tap spans)
-            taps_fns = [self._query_anchored_fn(feats_g, calib_t, k)
-                        if k else None for k in rot_k]
-        else:
-            taps_fns = None
-        query_occ = self._query_occ_fn(feats_g, calib_t)
-        query_grid = (self._query_grid_fn(feats_g, calib_t)
-                      if use_grid and ray_g else None)
         telemetry: list = []
         tex_state: list = []
         vol, counts = None, []
@@ -630,31 +724,26 @@ class ReconEngine:
         if march:
             # volume-free: no hierarchy, no depth peel, no sdf; a rotated
             # frame's colour query reuses the last level's compaction
-            want_state = (not use_taps and self.netC is not None
-                          and image_c is not None)
-            maps = ray_pyramid(
-                query_occ, self.fine_res, levels=self.march_levels,
-                taps=self.ray_taps, balance_value=self.recon.balance_value,
-                b_min=self.recon.b_min, b_max=self.recon.b_max,
-                window=self.ray_window, query_taps_fn=taps_fns,
-                query_grid_fn=query_grid, march_taps=use_taps,
-                compact=compact, telemetry=telemetry,
-                compact_state=tex_state if want_state else None,
-                device=self.device)
+            maps, telemetry, tex_state = self._march(
+                feats_g, calib_t, self._path(use_grid, ray_g, march),
+                compact, rot_k)
         else:
+            query_occ = self._query_occ_fn(feats_g, calib_t)
             with profiling.span("recon.hierarchy"):
                 vol, counts = self.recon(query_occ, return_counts=True,
                                          device=self.device)
             if self.mode == "ray":
                 # one coarse-to-fine level: the rotated plan has one entry
-                if isinstance(taps_fns, list):
-                    taps_fns = taps_fns[-1]
                 maps = ray_refine(
                     query_occ, vol, self.fine_res, taps=self.ray_taps,
                     balance_value=self.recon.balance_value,
                     b_min=self.recon.b_min, b_max=self.recon.b_max,
                     direction=self.direction, window=self.ray_window,
-                    query_taps_fn=taps_fns, query_grid_fn=query_grid)
+                    query_taps_fn=self._level_taps_fn(
+                        feats_g, calib_t, ray_g,
+                        self._anchors(ray_g, rot_k, -1)),
+                    query_grid_fn=(self._query_grid_fn(feats_g, calib_t)
+                                   if use_grid and ray_g else None))
             else:
                 resolution = self.recon.resolutions[-1]
                 with profiling.span("recon.peel"):
@@ -676,7 +765,7 @@ class ReconEngine:
                 feat_prior = feats_g[-1][-1]
                 feats_c, mode = self.graphs.run(
                     "netC", self._filter_c_f32, (image_c, feat_prior),
-                    (dt, feat_prior.dtype), upcast=dt != torch.float32)
+                    (dt, feat_prior.dtype), extra=dt != torch.float32)
                 if sp is not None:
                     sp.attrs.update(graph=mode, **_backbone_attrs(self.netC,
                                                                   feats_c))

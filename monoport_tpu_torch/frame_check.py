@@ -45,7 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .backbone_graphs import leaves
+from .frame_graphs import leaves
 from .config import get_cfg_defaults
 from .engine import EngineCfg, RayCfg
 from .recon.calib import pifu_calib
@@ -155,6 +155,16 @@ def rotated_calib(yaw_deg: float = ROTATED_POSE[0],
     return pifu_calib(orbit_extrinsic(yaw_deg, pitch_deg), np.eye(4))
 
 
+def inplane_calib(deg: float = 10.0) -> np.ndarray:
+    """[1, 4, 4] calib of the frontal camera turned by ``deg`` degrees in
+    the image plane: image rows free of z but not diagonal, the ray-taps
+    path."""
+    c, s = np.cos(np.radians(deg)), np.sin(np.radians(deg))
+    calib = np.eye(4, dtype=np.float32)
+    calib[:2, :2] = [[c, -s], [s, c]]
+    return calib[None]
+
+
 def load_golden(path: str = GOLDEN) -> dict:
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
@@ -235,24 +245,32 @@ def compare_sdf(out: dict, golden: dict, atol: float = 2e-3,
     return res
 
 
-def replay_check(eng, images, calibs) -> dict:
-    """The engine's backbone graphs (``backbone_graphs``) against its eager
-    calls, bit for bit. First a frontal frame of each image in turn
-    (the first captures, the rest replay; a change of image between
-    replays tests the input copy), each backbone call's outputs held to
-    the eager call on the same inputs (netC on the prior it was given);
-    then a frame of the first image at each calib, the graphs on against
-    the same frame with them off. -> {'calls': [(net, mode, equal)],
-    'frames': [{output: equal}], 'ok', 'counts', 'signatures'}."""
+def replay_check(eng, images, cases) -> dict:
+    """The engine's graphs (``frame_graphs``: the backbone calls and the
+    march pyramid's stages) against eager calls, bit for bit. First a
+    frontal frame of each image in turn (the first captures, the rest
+    replay; a change of image between replays tests the input copy), each
+    graphed call's outputs held to the eager call on the same inputs (netC
+    on the prior it was given, a stage on the maps and calib it was
+    given); then, twice over, a frame of each image at each (calib,
+    compact_hint) of ``cases``, the graphs on against the same frame with
+    them off (the graphs capture each new key, then replay it after a
+    change of image and of calib), and the depth and valid each graphed
+    frame returned held unchanged after the next one, of another image or
+    key. -> {'calls': [(name, mode, equal)], 'frames': [{output: equal}],
+    'kept': [equal], 'ok', 'counts', 'signatures', 'keys': {name: graphs
+    captured}}."""
     graphs = eng.graphs
     run = graphs.run
     calls = []
 
-    def held_to_eager(net, fn, inputs, dtypes, upcast):
-        out, mode = run(net, fn, inputs, dtypes, upcast)
+    def held_to_eager(name, fn, inputs, dtypes=None, extra=None,
+                      capture=True):
+        out, mode = run(name, fn, inputs, dtypes, extra, capture)
+        dtypes = dtypes or [t.dtype for t in inputs]
         want = fn(*(t.to(device=eng.device, dtype=d)
                     for t, d in zip(inputs, dtypes)))
-        calls.append((net, mode, all(torch.equal(a, b) for a, b in zip(
+        calls.append((name, mode, all(torch.equal(a, b) for a, b in zip(
             leaves(out), leaves(want)))))
         return out, mode
 
@@ -262,23 +280,44 @@ def replay_check(eng, images, calibs) -> dict:
             eng.frame(image, image)
     finally:
         del graphs.run
-    frames = []
+    frames, kept = [], []
     capturable = graphs.capturable
-    for calib in calibs:
-        try:
-            graphs.capturable = False
-            want = eng.frame(images[0], images[0], calib)
-        finally:
-            graphs.capturable = capturable
-        for _ in range(2):  # a new signature captures, then replays
-            got = eng.frame(images[0], images[0], calib)
-            frames.append({k: bool(torch.equal(got[k], want[k]))
-                           for k in want})
-    ok = (all(c[2] for c in calls)
+    last = None
+    for _ in range(2):
+        for calib, hint in cases:
+            for image in images:
+                try:
+                    graphs.capturable = False
+                    want = eng.frame(image, image, calib, compact_hint=hint)
+                finally:
+                    graphs.capturable = capturable
+                got = eng.frame(image, image, calib, compact_hint=hint)
+                frames.append({k: bool(torch.equal(got[k], want[k]))
+                               for k in want})
+                if last is not None:
+                    out, snap = last
+                    kept.append(all(bool(torch.equal(out[k], v))
+                                    for k, v in snap.items()))
+                last = got, {k: got[k].clone() for k in ("depth", "valid")}
+    keys: dict = {}
+    for key in graphs._graphs:
+        keys[key[0]] = keys.get(key[0], 0) + 1
+    ok = (all(c[2] for c in calls) and all(kept)
           and all(all(f.values()) for f in frames))
-    return {"calls": calls, "frames": frames, "ok": ok,
+    return {"calls": calls, "frames": frames, "kept": kept, "ok": ok,
             "counts": {k: dict(v) for k, v in graphs.counts.items()},
-            "signatures": len(graphs._graphs)}
+            "signatures": len(graphs._graphs), "keys": keys}
+
+
+def replay_cases() -> list:
+    """The (calib, compact_hint) of ``replay_check``'s frames: one frame of
+    each march path, the frontal grid, the in-plane ray taps
+    (``inplane_calib``) and the rotated pose (``rotated_calib``) at a hint
+    that snaps to each rung of ``COMPACT_LADDER`` under the 0.5 ceiling of
+    ``RotatedCfg``."""
+    rotated = rotated_calib()
+    return [(None, None), (inplane_calib(), None), (rotated, 0.2),
+            (rotated, 0.3), (rotated, 0.45)]
 
 
 # the f32 backbone against its golden: the largest error of a level over

@@ -238,11 +238,13 @@ def ray_refine(query_fn: Callable | None, vol_coarse: torch.Tensor,
     ``refine_from_maps`` (which documents ``window`` and the queries)."""
     with profiling.span("recon.peel"):
         coarse = depth_peel(vol_coarse, direction, balance_value)
-    return refine_from_maps(query_fn, coarse, vol_coarse.shape[0], fine_res,
-                            taps=taps, balance_value=balance_value,
-                            b_min=b_min, b_max=b_max, window=window,
-                            query_taps_fn=query_taps_fn,
-                            query_grid_fn=query_grid_fn)
+    rc = vol_coarse.shape[0]
+    with profiling.span("recon.refine", **{"from": rc, "to": fine_res}):
+        return refine_from_maps(query_fn, coarse, rc, fine_res, taps=taps,
+                                balance_value=balance_value, b_min=b_min,
+                                b_max=b_max, window=window,
+                                query_taps_fn=query_taps_fn,
+                                query_grid_fn=query_grid_fn)
 
 
 def compact_budget(compact: float | None, h: int, w: int) -> int | None:
@@ -304,61 +306,61 @@ def refine_from_maps(query_fn: Callable | None, coarse: SurfaceMaps, rc: int,
     to a static budget of this fraction of the lattice; ``telemetry``
     collects the dropped-ray counts. ``compact_state``: a list that
     receives this level's ``RayCompaction`` (windowed compact path only),
-    for a texture query that reuses this compaction."""
-    with profiling.span("recon.refine", **{"from": rc, "to": fine_res}):
-        rf = fine_res
-        dev = coarse.depth.device
-        scale = (rf - 1) / (rc - 1)
-        depth_f, valid_f = _upsampled_coarse(coarse, rf, scale)
+    for a texture query that reuses this compaction. Opens no span: its
+    callers open ``recon.refine`` around it."""
+    rf = fine_res
+    dev = coarse.depth.device
+    scale = (rf - 1) / (rc - 1)
+    depth_f, valid_f = _upsampled_coarse(coarse, rf, scale)
 
-        if window is None or window >= rf:
-            a = torch.arange(rf, dtype=torch.float32, device=dev)
-            return _refine_core(query_fn, depth_f, valid_f, a, a, rf, taps,
-                                scale, balance_value, b_min, b_max,
-                                query_taps_fn=query_taps_fn,
-                                query_grid_fn=query_grid_fn,
-                                budget=compact_budget(compact, rf, rf),
-                                telemetry=telemetry)[0]
+    if window is None or window >= rf:
+        a = torch.arange(rf, dtype=torch.float32, device=dev)
+        return _refine_core(query_fn, depth_f, valid_f, a, a, rf, taps,
+                            scale, balance_value, b_min, b_max,
+                            query_taps_fn=query_taps_fn,
+                            query_grid_fn=query_grid_fn,
+                            budget=compact_budget(compact, rf, rf),
+                            telemetry=telemetry)[0]
 
-        x0, sx = axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
-        y0, sy = axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
-        ar_w = torch.arange(window, dtype=torch.float32, device=dev)
-        aw = x0 + ar_w * sx
-        bw = y0 + ar_w * sy
-        d_w = sample_grid(depth_f, aw, bw)
-        v_w = sample_grid(valid_f.float(), aw, bw) > 0.0
-        maps_w, gathered = _refine_core(
-            query_fn, d_w, v_w, aw, bw, rf, taps, scale, balance_value,
-            b_min, b_max, spacing=(sx, sy), query_taps_fn=query_taps_fn,
-            query_grid_fn=query_grid_fn,
-            budget=compact_budget(compact, window, window),
-            telemetry=telemetry)
-        if compact_state is not None and gathered is not None:
-            compact_state.append(RayCompaction(*gathered, w=window, x0=x0,
-                                               sx=sx, y0=y0, sy=sy, aw=aw,
-                                               bw=bw))
+    x0, sx = axis_window(coarse.valid.any(dim=1), rc, rf, scale, window)
+    y0, sy = axis_window(coarse.valid.any(dim=0), rc, rf, scale, window)
+    ar_w = torch.arange(window, dtype=torch.float32, device=dev)
+    aw = x0 + ar_w * sx
+    bw = y0 + ar_w * sy
+    d_w = sample_grid(depth_f, aw, bw)
+    v_w = sample_grid(valid_f.float(), aw, bw) > 0.0
+    maps_w, gathered = _refine_core(
+        query_fn, d_w, v_w, aw, bw, rf, taps, scale, balance_value,
+        b_min, b_max, spacing=(sx, sy), query_taps_fn=query_taps_fn,
+        query_grid_fn=query_grid_fn,
+        budget=compact_budget(compact, window, window),
+        telemetry=telemetry)
+    if compact_state is not None and gathered is not None:
+        compact_state.append(RayCompaction(*gathered, w=window, x0=x0,
+                                           sx=sx, y0=y0, sy=sy, aw=aw,
+                                           bw=bw))
 
-        # resample the refined window back onto the full fine grid (an exact
-        # gather at stride 1); outside the window keep the coarse maps
-        ar = torch.arange(rf, dtype=torch.float32, device=dev)
-        u = (ar - x0) / sx
-        v = (ar - y0) / sy
-        inside = (((u >= 0) & (u <= window - 1))[:, None]
-                  & ((v >= 0) & (v <= window - 1))[None, :])
-        uc = torch.clamp(u, 0.0, window - 1)
-        vc = torch.clamp(v, 0.0, window - 1)
-        depth = torch.where(inside, sample_grid(maps_w.depth, uc, vc),
-                            depth_f)
-        norm_fallback = torch.zeros(rf, rf, 3, device=dev)
-        norm_fallback[..., 2] = -1.0
-        norm_w = torch.stack([sample_grid(maps_w.normal[..., k], uc, vc)
-                              for k in range(3)], dim=-1)
-        norm_w = norm_w / torch.clamp(torch.linalg.vector_norm(
-            norm_w, dim=-1, keepdim=True), min=1e-9)
-        norm = torch.where(inside[..., None], norm_w, norm_fallback)
-        valid_w = sample_grid(maps_w.valid.float(), uc, vc) > 0.5
-        valid = torch.where(inside, valid_w, valid_f)
-        return SurfaceMaps(depth=depth, normal=norm, valid=valid)
+    # resample the refined window back onto the full fine grid (an exact
+    # gather at stride 1); outside the window keep the coarse maps
+    ar = torch.arange(rf, dtype=torch.float32, device=dev)
+    u = (ar - x0) / sx
+    v = (ar - y0) / sy
+    inside = (((u >= 0) & (u <= window - 1))[:, None]
+              & ((v >= 0) & (v <= window - 1))[None, :])
+    uc = torch.clamp(u, 0.0, window - 1)
+    vc = torch.clamp(v, 0.0, window - 1)
+    depth = torch.where(inside, sample_grid(maps_w.depth, uc, vc),
+                        depth_f)
+    norm_fallback = torch.zeros(rf, rf, 3, device=dev)
+    norm_fallback[..., 2] = -1.0
+    norm_w = torch.stack([sample_grid(maps_w.normal[..., k], uc, vc)
+                          for k in range(3)], dim=-1)
+    norm_w = norm_w / torch.clamp(torch.linalg.vector_norm(
+        norm_w, dim=-1, keepdim=True), min=1e-9)
+    norm = torch.where(inside[..., None], norm_w, norm_fallback)
+    valid_w = sample_grid(maps_w.valid.float(), uc, vc) > 0.5
+    valid = torch.where(inside, valid_w, valid_f)
+    return SurfaceMaps(depth=depth, normal=norm, valid=valid)
 
 
 def axis_window(any_valid: torch.Tensor, rc: int, rf: int, scale: float,
@@ -411,6 +413,57 @@ def ray_march(query_fn: Callable | None, res: int, balance_value: float = 0.5,
     return SurfaceMaps(depth=z, normal=norm, valid=hit)
 
 
+class PyramidStage(NamedTuple):
+    """One stage of the march pyramid: the dense march at ``rf`` (``rc``
+    None), or the refine of level ``level`` from ``rc`` to ``rf``, windowed
+    by ``window`` (the last level's alone)."""
+    rc: int | None
+    rf: int
+    level: int | None
+    window: int | None
+
+    def span(self) -> tuple:
+        """(name, attributes) of the stage's span."""
+        if self.rc is None:
+            return "recon.march", {}
+        return "recon.refine", {"from": self.rc, "to": self.rf}
+
+
+def pyramid_stages(levels, fine_res: int,
+                   window: int | None = None) -> list:
+    """The ``PyramidStage``s of ``ray_pyramid``, in order: the march at
+    levels[0], then a refine through each later level and ``fine_res``."""
+    lv = list(levels) + [fine_res]
+    last = len(levels) - 1
+    return [PyramidStage(None, levels[0], None, None)] + [
+        PyramidStage(rc, rf, i, window if i == last else None)
+        for i, (rc, rf) in enumerate(zip(lv[:-1], lv[1:]))]
+
+
+def run_stage(stage: PyramidStage, maps: SurfaceMaps | None,
+              query_fn: Callable | None,
+              query_taps_fn: Callable | None = None,
+              query_grid_fn: Callable | None = None, taps: int = 6,
+              balance_value: float = 0.5, b_min=(-1.0, -1.0, -1.0),
+              b_max=(1.0, 1.0, 1.0), compact: float | None = None,
+              telemetry: list | None = None,
+              compact_state: list | None = None,
+              device=None) -> SurfaceMaps:
+    """One stage of the pyramid on the previous stage's ``maps`` (None for
+    the march): ``ray_march`` or ``refine_from_maps`` (which documents the
+    rest), under no span."""
+    if stage.rc is None:
+        return ray_march(query_fn, stage.rf, balance_value, b_min, b_max,
+                         query_taps_fn=query_taps_fn,
+                         query_grid_fn=query_grid_fn, device=device)
+    return refine_from_maps(query_fn, maps, stage.rc, stage.rf, taps=taps,
+                            balance_value=balance_value, b_min=b_min,
+                            b_max=b_max, window=stage.window,
+                            query_taps_fn=query_taps_fn,
+                            query_grid_fn=query_grid_fn, compact=compact,
+                            telemetry=telemetry, compact_state=compact_state)
+
+
 def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
                 taps: int = 6, balance_value: float = 0.5,
                 b_min=(-1.0, -1.0, -1.0), b_max=(1.0, 1.0, 1.0),
@@ -423,7 +476,8 @@ def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
                 device=None) -> SurfaceMaps:
     """Volume-free coarse-to-fine surface localization: dense march at
     levels[0], then ``refine_from_maps`` through the remaining levels and
-    finally ``fine_res`` (with the optional bbox window).
+    finally ``fine_res`` (with the optional bbox window), each stage
+    (``pyramid_stages``) under its span.
     ``compact``: non-grid paths; each refine level queries just its
     coarse-valid rays at this budget fraction.
     ``march_taps``: give the dense march ``query_taps_fn`` too. False for
@@ -446,22 +500,20 @@ def ray_pyramid(query_fn: Callable | None, fine_res: int, levels=(33, 65),
         fns = list(query_taps_fn)
     else:
         fns = [query_taps_fn] * len(levels)
-    with profiling.span("recon.march"):
-        maps = ray_march(query_fn, levels[0], balance_value, b_min, b_max,
-                         query_taps_fn=fns[0] if march_taps else None,
-                         query_grid_fn=query_grid_fn, device=device)
-    for i, (rc, rl) in enumerate(zip(levels[:-1], levels[1:])):
-        maps = refine_from_maps(query_fn, maps, rc, rl, taps=taps,
-                                balance_value=balance_value, b_min=b_min,
-                                b_max=b_max, query_taps_fn=fns[i],
-                                query_grid_fn=query_grid_fn, compact=compact,
-                                telemetry=telemetry)
-    return refine_from_maps(query_fn, maps, levels[-1], fine_res, taps=taps,
-                            balance_value=balance_value, b_min=b_min,
-                            b_max=b_max, window=window,
-                            query_taps_fn=fns[-1],
-                            query_grid_fn=query_grid_fn, compact=compact,
-                            telemetry=telemetry, compact_state=compact_state)
+    maps = None
+    for stage in pyramid_stages(levels, fine_res, window):
+        if stage.rc is None:
+            taps_fn = fns[0] if march_taps else None
+        else:
+            taps_fn = fns[stage.level]
+        name, attrs = stage.span()
+        with profiling.span(name, **attrs):
+            maps = run_stage(stage, maps, query_fn, taps_fn, query_grid_fn,
+                             taps=taps, balance_value=balance_value,
+                             b_min=b_min, b_max=b_max, compact=compact,
+                             telemetry=telemetry,
+                             compact_state=compact_state, device=device)
+    return maps
 
 
 def sample_grid(img: torch.Tensor, xi: torch.Tensor,

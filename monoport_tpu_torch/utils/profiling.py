@@ -11,13 +11,19 @@ program's spans on a track of their own, written as a Chrome trace file
 Spans and queries. The engine marks its layers with ``span(name,
 **attrs)`` (a context manager) and each head query with ``query(name,
 rows, taps, anchors)``. Both do nothing unless a recorder is on
-(``recording()``): the off path is one module-level check that returns a
-shared no-op context, with no clock reading and no ``record_function``.
+(``recording()``) or, for a query, a ``collecting`` block: the off path is
+a module-level check (a span's returns a shared no-op context), with no
+clock reading and no ``record_function``.
 A recorder keeps, in memory, each span's name, start and end, parent,
 frame id and attributes, and each query's rows under the span open at
 the call; a stack a thread, since the served demo runs the engine in a
 stage thread. A frame is the span named ``FRAME``: its id is the order
 of its start, and every span and query under it carries that id.
+
+A CUDA graph replays its kernels without the Python that made its
+queries, so ``collecting()`` takes this thread's query records into a list
+of its own, whether or not a recorder is on, for the graph's owner to make
+again at each replay (``frame_graphs.py``).
 
 Stamps are ``time.time_ns()``, the clock of ``torch.profiler``'s events
 (``_KinetoEvent.start_ns``), so spans and the profiler's host and device
@@ -40,6 +46,7 @@ import torch
 FRAME = "engine.frame"
 
 _RECORDER: Optional["Recorder"] = None       # the recorder on, if any
+_SINKS: dict = {}          # thread ident -> the list a ``collecting`` fills
 
 
 def _first_tensor(out) -> torch.Tensor:
@@ -194,10 +201,34 @@ def span(name: str, **attrs):
 def query(name: str, rows: int, taps: int = 1, anchors: int = 0) -> None:
     """Record one head query of ``rows`` rows (host-side shapes, before
     any sharding) under the span open on this thread; nothing while no
-    recorder is on."""
+    recorder is on. Inside a ``collecting`` block of this thread the
+    record goes to its list instead."""
+    if _SINKS:
+        sink = _SINKS.get(threading.get_ident())
+        if sink is not None:
+            sink.append((name, int(rows), int(taps), int(anchors)))
+            return
     rec = _RECORDER
     if rec is not None:
         rec._query(name, rows, taps, anchors)
+
+
+@contextlib.contextmanager
+def collecting():
+    """A list of the (name, rows, taps, anchors) of each ``query`` this
+    thread makes inside the block, which then reach no recorder; blocks
+    nest, the innermost collects."""
+    ident = threading.get_ident()
+    outer = _SINKS.get(ident)
+    sink: list = []
+    _SINKS[ident] = sink
+    try:
+        yield sink
+    finally:
+        if outer is None:
+            del _SINKS[ident]
+        else:
+            _SINKS[ident] = outer
 
 
 @contextlib.contextmanager

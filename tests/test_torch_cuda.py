@@ -12,10 +12,14 @@ launch in the activation scratch; the bf16 per-point and ray
 kernels are one launch each with no scratch, the bf16 anchored and
 gathering routes one weighted-row pass and one wgmma launch each, and the
 pass (``csrc/mix_rows.cuh``) equals ``mix_rows_plain`` within one bf16 ulp.
-The engine's backbone graphs (``backbone_graphs``) on the committed hg4
-nets and the seeded HRNet netG: replayed netG and netC features, after a
-change of image too, and whole frontal and rotated frames bit-equal to
-the eager calls (``frame_check.replay_check``), one capture a signature.
+The engine's graphs (``frame_graphs``: the backbone calls and the march
+pyramid's stages) on the committed hg4 nets and the seeded HRNet netG:
+replayed netG and netC features and stage maps, after a change of image
+too, and whole frames of every march path (frontal grid, in-plane taps,
+rotated at each rung under the 0.5 ceiling) bit-equal to the eager calls
+across changes of image and calib, each frame's returned depth and valid
+unchanged by the next frame (``frame_check.replay_check``), one capture a
+signature.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -600,12 +604,15 @@ def test_replayed_backbones_and_frames_equal_eager(card, config):
     image = torch.from_numpy(frame_check.load_golden()["image"]).to(card)
     other = torch.flip(image, dims=(2,))
     res = frame_check.replay_check(eng, [image, other, image],
-                                   [None, frame_check.rotated_calib()])
+                                   frame_check.replay_cases())
     torch.cuda.synchronize()
     assert res["ok"], res
     nets = ["netG"] if netC is None else ["netG", "netC"]
-    assert [c[:2] for c in res["calls"]] == (
+    assert [c[:2] for c in res["calls"] if c[0] != "recon"] == (
         [(n, "capture") for n in nets] + [(n, "replay") for n in nets] * 2)
-    assert res["signatures"] == len(nets)
-    for n in nets:
-        assert res["counts"][n]["capture"] == 1
+    assert [c[1] for c in res["calls"] if c[0] == "recon"] == (
+        ["capture"] * 3 + ["replay"] * 6)
+    assert {n: res["keys"][n] for n in nets} == dict.fromkeys(nets, 1)
+    assert res["signatures"] == sum(res["keys"].values())
+    for n, keys in res["keys"].items():
+        assert res["counts"][n]["capture"] == keys

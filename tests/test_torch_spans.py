@@ -11,15 +11,18 @@ no recorder (nothing recorded, no clock read, outputs bit-equal to a
 recorded frame's), one stack a thread, and the stamps on the profiler's
 clock.
 
-The backbone graphs (``backbone_graphs``): on the CPU every backbone call
-runs eagerly (``graph="eager"``) with the nets' own outputs; the
-signature separates the nets, the upcast choices, image shapes and a
-prior, and pins a graph output by address; no frame output aliases a
-backbone output. Capture and replay run on the CPU through a fake CUDA
-graph (each ATen op recorded at capture and run again, in place, at
+The graphs (``frame_graphs``: the backbone calls and the march
+pyramid's stages): on the CPU every call runs eagerly (``graph="eager"``)
+with the nets' own outputs and ``ray_pyramid``'s maps; the signature
+separates the nets, the upcast choices, image shapes and a prior, and pins
+a graph output by address; a stage's key holds the stage, path, window,
+rung, anchor count and its inputs' shapes and dtypes; no frame output
+aliases a graph output. Capture and replay run on the CPU through a fake
+CUDA graph (each ATen op recorded at capture and run again, in place, at
 replay): replayed features and whole frames bit-equal to the eager ones,
 after a change of image too, one capture a signature, a failed capture
-eager from then on."""
+eager from then on; a replayed stage makes its capture's query records
+under its span and counts its launches once."""
 
 import contextlib
 import threading
@@ -30,7 +33,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from monoport_tpu_torch import backbone_graphs
+from monoport_tpu_torch import frame_graphs
 from monoport_tpu_torch import engine as tengine
 from monoport_tpu_torch.config import CN
 from monoport_tpu_torch.engine import (EngineCfg, RayCfg, ReconEngine,
@@ -113,7 +116,8 @@ def test_frontal_frame_span_tree(nets):
         for a, b in zip(children, children[1:]):      # siblings in turn
             assert a.end_ns <= b.start_ns
         assert [s.attrs for s in children if s.name == "recon.refine"] == [
-            {"from": 9, "to": 17}, {"from": 17, "to": 33}]
+            {"from": 9, "to": 17, "graph": "eager"},
+            {"from": 17, "to": 33, "graph": "eager"}]
         assert all(s.thread == threading.get_ident() for s in spans)
     assert rec.spans[0].end_ns <= rec.spans[len(FRONTAL_SPANS)].start_ns
 
@@ -247,7 +251,7 @@ def test_spans_land_on_the_profilers_clock():
     assert abs(float(np.median(ends))) < 100e3, ends
 
 
-# -- the backbone graphs (backbone_graphs.py) --------------------------------
+# -- the backbone graphs (frame_graphs.py) -----------------------------------
 class _FakeGraph:
     """A CUDA graph's semantics on the CPU: the capture records each ATen op
     with its argument and output tensors, and a replay runs them again in
@@ -303,14 +307,17 @@ def _graphed(eng):
     return eng
 
 
-def _collect_backbone_outputs(eng):
-    """Wrap ``eng.graphs.run``; -> the list its outputs go to."""
+def _collect_backbone_outputs(eng, recon: bool = False):
+    """Wrap ``eng.graphs.run``; -> the list the backbone calls' outputs go
+    to, and with ``recon`` the graphed (not eager) stages' outputs too."""
     seen = []
     run = eng.graphs.run
 
-    def recorded(*args, **kwargs):
-        out, mode = run(*args, **kwargs)
-        seen.extend(tree_leaves(out))
+    def recorded(name, *args, **kwargs):
+        out, mode = run(name, *args, **kwargs)
+        if name != "recon" or (recon and mode != "eager"):
+            seen.extend(t for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
         return out, mode
 
     eng.graphs.run = recorded
@@ -344,7 +351,8 @@ def test_cpu_backbone_spans_are_eager(nets, calib):
                                         "stage": [[16, 16, 288]]})] * 2
     assert eng.graphs.counts == {
         "netG": {"capture": 0, "replay": 0, "eager": 2},
-        "netC": {"capture": 0, "replay": 0, "eager": 2}}
+        "netC": {"capture": 0, "replay": 0, "eager": 2},
+        "recon": {"capture": 0, "replay": 0, "eager": 6}}
     with torch.no_grad():
         feats_g = eng.netG.filter(image)
         want = tree_leaves(feats_g) + tree_leaves(
@@ -358,7 +366,7 @@ def test_cpu_backbone_spans_are_eager(nets, calib):
 def _key(net="netG", shape=(1, 64, 64, 3), upcast=True, prior=None,
          pinned=None):
     inputs = [torch.zeros(shape)] + ([] if prior is None else [prior])
-    return backbone_graphs.signature(net, inputs, upcast, pinned)
+    return frame_graphs.signature(net, inputs, upcast, pinned)
 
 
 @pytest.mark.parametrize("other", [
@@ -392,14 +400,14 @@ def test_signature_pins_a_graph_output_by_address():
 def test_no_frame_output_aliases_a_backbone_output(nets, mode, march, calib,
                                                    graphed,
                                                    fake_cuda_graphs):
-    """The backbone outputs are a graph's static tensors, overwritten by
-    the next frame: no tensor of ``frame``'s output shares memory with
-    one."""
+    """The backbone outputs and the graphed pyramid stages' outputs are a
+    graph's static tensors, overwritten by the next frame: no tensor of
+    ``frame``'s output shares memory with one."""
     eng = _engine(nets, mode=mode, march=march)
     if graphed:
         _graphed(eng)
     image = nets[2]
-    seen = _collect_backbone_outputs(eng)
+    seen = _collect_backbone_outputs(eng, recon=True)
     outs = [eng.frame(image, image, calib) for _ in range(2)]
     spans = [(t.untyped_storage().data_ptr(),
               t.untyped_storage().nbytes()) for t in seen]
@@ -421,9 +429,10 @@ def test_replayed_backbones_equal_eager_filter(nets, fake_cuda_graphs):
     runs = []
     run = eng.graphs.run
 
-    def recorded(*args, **kwargs):
-        out, mode = run(*args, **kwargs)
-        runs.append((args[0], mode, [t.clone() for t in tree_leaves(out)]))
+    def recorded(name, *args, **kwargs):
+        out, mode = run(name, *args, **kwargs)
+        if name != "recon":
+            runs.append((name, mode, [t.clone() for t in tree_leaves(out)]))
         return out, mode
 
     eng.graphs.run = recorded
@@ -432,9 +441,10 @@ def test_replayed_backbones_equal_eager_filter(nets, fake_cuda_graphs):
     assert [(n, m) for n, m, _ in runs] == [
         ("netG", "capture"), ("netC", "capture"), ("netG", "replay"),
         ("netC", "replay"), ("netG", "replay"), ("netC", "replay")]
-    assert len(fake_cuda_graphs) == 2
+    # netG, the three pyramid stages, netC
+    assert len(fake_cuda_graphs) == 5
     assert {g.mode for g in fake_cuda_graphs} == {"thread_local"}
-    assert [g.replays for g in fake_cuda_graphs] == [3, 3]
+    assert [g.replays for g in fake_cuda_graphs] == [3] * 5
     with torch.no_grad():
         for k, img in enumerate((image, other, image)):
             feats_g = eng.netG.filter(img)
@@ -449,7 +459,8 @@ def test_replayed_backbones_equal_eager_filter(nets, fake_cuda_graphs):
     assert graph_c.copied == [True, False]
     assert eng.graphs.counts == {
         "netG": {"capture": 1, "replay": 2, "eager": 0},
-        "netC": {"capture": 1, "replay": 2, "eager": 0}}
+        "netC": {"capture": 1, "replay": 2, "eager": 0},
+        "recon": {"capture": 3, "replay": 6, "eager": 0}}
 
 
 @pytest.mark.parametrize("calib", [None, ROT_CALIB],
@@ -493,23 +504,210 @@ def test_failed_capture_stays_eager(nets, fake_cuda_graphs, monkeypatch):
     _assert_outputs_equal(eng.frame(image, image), want)
     assert eng.graphs.counts == {
         "netG": {"capture": 0, "replay": 0, "eager": 2},
-        "netC": {"capture": 0, "replay": 0, "eager": 2}}
+        "netC": {"capture": 0, "replay": 0, "eager": 2},
+        "recon": {"capture": 0, "replay": 0, "eager": 6}}
 
 
 def test_replay_check_passes_on_fake_graphs(nets, fake_cuda_graphs):
     """``frame_check.replay_check``, the card's check of the graphs, on
-    the emulated ones: every call and frame equal, a capture a
-    signature."""
+    the emulated ones: every call and frame equal, every returned depth
+    and valid kept, a capture a signature: netG, netC, three stages of
+    the grid path and of the taps path, and on the rotated path the march
+    and the two refines at each of the three rungs under the 0.5
+    ceiling."""
     from monoport_tpu_torch import frame_check
 
     image = nets[2]
     other = torch.flip(image, dims=(2,))
+    cases = [(None, None), (INPLANE_CALIB, None), (ROT_CALIB, 0.2),
+             (ROT_CALIB, 0.3), (ROT_CALIB, 0.45)]
     res = frame_check.replay_check(_graphed(_engine(nets)), [image, other],
-                                   [None, ROT_CALIB])
+                                   cases)
     assert res["ok"], res
-    assert [c[:2] for c in res["calls"]] == [
+    assert [c[:2] for c in res["calls"] if c[0] != "recon"] == [
         ("netG", "capture"), ("netC", "capture"),
         ("netG", "replay"), ("netC", "replay")]
-    assert len(res["frames"]) == 4
-    assert res["signatures"] == len(fake_cuda_graphs)
-    assert res["counts"]["netG"]["capture"] == 1
+    assert [c[1] for c in res["calls"] if c[0] == "recon"] == (
+        ["capture"] * 3 + ["replay"] * 3)
+    assert len(res["frames"]) == 2 * len(cases) * 2
+    assert len(res["kept"]) == len(res["frames"]) - 1
+    assert res["keys"] == {"netG": 1, "netC": 1, "recon": 3 + 3 + 1 + 6}
+    assert res["signatures"] == len(fake_cuda_graphs) == 15
+    for name, n in res["keys"].items():
+        assert res["counts"][name]["capture"] == n
+
+
+# -- the march pyramid's graphs (engine._march) ------------------------------
+def _stage_key(stage=(9, 17, None, 0), path="rotated", rung=0.5, anchors=3,
+               feat=(1, 16, 16, 32), dtype=torch.float32):
+    rc, rf, window, level = stage
+    inputs = [torch.zeros(1, 4, 4, dtype=dtype), torch.zeros(feat)]
+    return frame_graphs.signature("recon", inputs, tengine.stage_key(
+        tengine.PyramidStage(rc, rf, level, window), path, rung, anchors))
+
+
+@pytest.mark.parametrize("other", [
+    dict(stage=(17, 33, 24, 1)), dict(stage=(None, 9, None, None)),
+    dict(path="taps"), dict(stage=(9, 17, 20, 0)), dict(rung=0.375),
+    dict(rung=None), dict(anchors=2), dict(anchors=0),
+    dict(feat=(1, 32, 32, 32)), dict(dtype=torch.float64)],
+    ids=["stage", "march", "path", "window", "rung", "dense", "anchors",
+         "per-point", "shape", "dtype"])
+def test_stage_key_separates_stages(other):
+    """A pyramid stage's key holds the stage, the path, the window, the
+    compaction rung, the anchor count and its inputs' shapes and dtypes:
+    two calls that differ in any one get keys of their own; the same call
+    gets the same key."""
+    assert _stage_key() == _stage_key()
+    assert _stage_key(**other) != _stage_key()
+
+
+def test_frames_capture_a_graph_a_stage_key(nets, fake_cuda_graphs):
+    """One engine's frames capture each stage key once and replay it after:
+    the grid and taps paths three keys each, the rotated path one march
+    and a refine pair a rung; a second round of the same frames captures
+    nothing."""
+    eng = _graphed(_engine(nets))
+    image = nets[2]
+    frames = [(None, None), (INPLANE_CALIB, None), (ROT_CALIB, 0.3),
+              (ROT_CALIB, 0.45)]
+    for calib, hint in frames:
+        eng.frame(image, image, calib, compact_hint=hint)
+    assert eng.graphs.counts["recon"] == {"capture": 3 + 3 + 1 + 4,
+                                          "replay": 1, "eager": 0}
+    for calib, hint in frames:
+        eng.frame(image, image, calib, compact_hint=hint)
+    assert eng.graphs.counts["recon"] == {"capture": 11, "replay": 13,
+                                          "eager": 0}
+    keys = [k[1] for k in eng.graphs._graphs if k[0] == "recon"]
+    assert len(keys) == len(set(keys)) == 11
+    assert {k[2] for k in keys} == {"grid", "taps", "rotated"}
+
+
+def _pyramid_maps(eng, image, calib, hint):
+    """A march frame's surface the plain way: ``ray_pyramid`` over the
+    frame's query closures, on the eager backbone's maps. -> (SurfaceMaps,
+    the refine levels' dropped counts)."""
+    from monoport_tpu_torch.recon.ray_refine import ray_pyramid
+
+    calib = np.eye(4, dtype=np.float32)[None] if calib is None else calib
+    calib_t = torch.from_numpy(calib)
+    ray_g = eng._calib_taps_ok(calib)
+    compact = (None if ray_g else tengine._snap_budget(
+        hint, eng.config.rotated.compact) if hint else
+        eng.config.rotated.compact)
+    plan = () if ray_g else eng._rot_anchor_plan(calib, image.shape[1])
+    with torch.no_grad():
+        feats = eng._filter_g(image)
+        if ray_g:
+            taps = eng._query_taps_fn(feats, calib_t)
+        else:
+            taps = [eng._query_anchored_fn(feats, calib_t, k) if k else None
+                    for k in plan]
+        grid = (eng._query_grid_fn(feats, calib_t)
+                if eng._calib_grid_ok(calib) else None)
+        dropped = []
+        maps = ray_pyramid(
+            eng._query_occ_fn(feats, calib_t), FINE, levels=LEVELS,
+            taps=TAPS, balance_value=eng.recon.balance_value,
+            b_min=eng.recon.b_min, b_max=eng.recon.b_max, window=WINDOW,
+            query_taps_fn=taps, query_grid_fn=grid, march_taps=ray_g,
+            compact=compact, telemetry=dropped, device="cpu")
+    return maps, dropped
+
+
+@pytest.mark.parametrize("calib,hint,path", [
+    (None, None, "grid"), (INPLANE_CALIB, None, "taps"),
+    (ROT_CALIB, 0.3, "rotated")])
+def test_cpu_march_frames_run_eager(nets, calib, hint, path):
+    """On the CPU a march frame's three stages run eagerly (the recon count
+    and each stage span's ``graph`` read ``eager``), and its depth, valid
+    and refine-level dropped counts equal ``ray_pyramid``'s over the same
+    queries."""
+    eng = _engine(nets)
+    image = nets[2]
+    rec, (out,) = _recorded(eng, nets, calib, hint)
+    assert rec.spans[0].attrs["path"] == path
+    assert eng.graphs.counts["recon"] == {"capture": 0, "replay": 0,
+                                          "eager": 3}
+    assert [s.attrs["graph"] for s in rec.spans
+            if s.name in ("recon.march", "recon.refine")] == ["eager"] * 3
+    maps, dropped = _pyramid_maps(eng, image, calib, hint)
+    assert torch.equal(out["depth"], maps.depth)
+    assert torch.equal(out["valid"], maps.valid)
+    if dropped:
+        assert torch.equal(out["compact_dropped"][:len(dropped)],
+                           torch.stack(dropped))
+
+
+def test_replayed_stages_make_their_capture_records(nets, fake_cuda_graphs):
+    """The query records of a stage, collected while it is captured with no
+    recorder on, are made again at each replay under the stage's span:
+    a recorded replaying frame has the eager frame's records (rows, taps,
+    anchors, span), its stage spans read ``replay``."""
+    image = nets[2]
+    want, _ = _recorded(_engine(nets), nets, ROT_CALIB, 0.3)
+    eng = _graphed(_engine(nets))
+    eng.frame(image, image, ROT_CALIB, compact_hint=0.3)   # the captures
+    rec, _ = _recorded(eng, nets, ROT_CALIB, 0.3)
+
+    def rows(r):
+        return [(q.name, q.rows, q.taps, q.anchors, q.span.name,
+                 q.span.attrs.get("from"), q.frame) for q in r.queries]
+
+    assert rows(rec) == rows(want)
+    assert any(q.anchors for q in rec.queries)
+    assert [s.attrs["graph"] for s in rec.spans
+            if s.name in ("recon.march", "recon.refine")] == ["replay"] * 3
+
+
+def test_replayed_stages_count_their_launches(nets, fake_cuda_graphs,
+                                              monkeypatch):
+    """A stage call adds its kernels' launches to the counters once,
+    captured or replayed, as an eager call does: the capture's warm call
+    and recording are wound back."""
+    from monoport_tpu_torch.ops.cuda.fused_mlp import apply_mlp
+    from monoport_tpu_torch.ops.cuda.fused_ray_mlp import apply_anchor
+
+    def counted(fn, counter):
+        def launch(*args):
+            counter.launches += 1
+            return fn(*args)
+        return launch
+
+    image = nets[2]
+    got = []
+    for graphed in (False, True):
+        eng = _engine(nets)
+        if graphed:
+            _graphed(eng)
+        eng.point_g = counted(eng.point_g, apply_mlp)
+        eng.anchor_g = counted(eng.anchor_g, apply_anchor)
+        monkeypatch.setattr(apply_mlp, "launches", 0)
+        monkeypatch.setattr(apply_anchor, "launches", 0)
+        for _ in range(3):
+            eng.frame(image, image, ROT_CALIB, compact_hint=0.3)
+        got.append((apply_mlp.launches, apply_anchor.launches))
+    plan = _engine(nets)._rot_anchor_plan(ROT_CALIB, 64)
+    per_frame = (1 + sum(1 for k in plan if not k), sum(1 for k in plan if k))
+    assert got == [tuple(3 * n for n in per_frame)] * 2
+
+
+def test_collecting_takes_this_threads_queries():
+    """``collecting`` takes the block's queries from the recorder into its
+    list, on its thread alone; blocks nest."""
+    with profiling.recording() as rec:
+        with profiling.collecting() as outer:
+            profiling.query("a", 3, taps=2)
+            with profiling.collecting() as inner:
+                profiling.query("b", 5, anchors=4)
+            t = threading.Thread(target=profiling.query, args=("c", 7))
+            t.start()
+            t.join(timeout=30)
+        profiling.query("d", 9)
+    assert outer == [("a", 3, 2, 0)]
+    assert inner == [("b", 5, 1, 4)]
+    assert [(q.name, q.rows) for q in rec.queries] == [("c", 7), ("d", 9)]
+    with profiling.collecting() as off:
+        profiling.query("e", 1)
+    assert off == [("e", 1, 1, 0)]
