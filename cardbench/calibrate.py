@@ -18,6 +18,10 @@ plain f32 reference of the same inputs:
   ``shifted`` (the depth moved by two fine voxels where it is produced)
   and ``empty`` (no silhouette at all): planted faults.
 
+A cell whose traffic names the ``serve`` driver reads its served frames
+instead (``serve_readings``): the program, the control, the floor's
+witness and the faults, every share of ``serve.served_counts``.
+
     python3 cardbench/calibrate.py --workload <name> --seeds 1,2,3 \
         --seconds 8
 
@@ -42,7 +46,7 @@ import torch  # noqa: E402
 
 from cardbench.harness import card, compare, program  # noqa: E402
 from cardbench.harness.cell import Cell  # noqa: E402
-from cardbench.harness.manifest import Manifest  # noqa: E402
+from cardbench.harness.manifest import ROOT, Manifest  # noqa: E402
 from cardbench.reference.frame import (load_nets, quantize_fp8,  # noqa: E402
                                        reference_frame)
 
@@ -113,6 +117,80 @@ def readings(manifest, workload: str, seed: int, seconds: float,
                for k in kinds if k not in ("stale", "empty")}}
 
 
+def serve_readings(manifest, workload: str, seed: int, seconds: float,
+                   device="cuda") -> dict:
+    """A served cell's readings: the program, the control (the reference
+    on the configuration's control nets, its segmenters on TF32), the
+    floor's witness (the program's served canvas with its floor drawn by
+    the program's own rasterizer from the uvs that its own OBJ reader
+    returns) and the faults (stale, shifted, empty; the served canvas's
+    JPEG coded at quality 75 and 50)."""
+    from cardbench.harness.serve import ServeCell, matte_iou, served_counts
+    from cardbench.reference.frame import _tf32
+    from cardbench.reference.segmentation import segmenter
+    from cardbench.reference.served import camera
+    from monoport_tpu_torch.pipeline.jpeg import encode_jpeg
+
+    cell = ServeCell(manifest, workload, seed, device)
+    cell.setup()
+    cell.warm_up()
+    cell.prepare_sample(seconds)
+    win = cell.window(seconds)
+    cell.free_program()
+    ref = cell.reference()
+    ctrl = cell.reference(control=True, segment=segmenter(
+        cell.config["serve"], ROOT, cell.device, _tf32))
+    floor = program.served_floor_witness(cell.config, cell.device)
+    frames = cell.checked(win)
+    kinds = ("program", "control", "witness", "stale", "shifted", "empty",
+             "jpeg_q75", "jpeg_q50")
+    counts = {k: [] for k in kinds}
+    tols = cell.limits["tolerances"]
+    bodies = len(cell.frames)
+
+    def read(kind, got, want):
+        c = served_counts(got, want, tols, cell.level)
+        if kind in ("control", "witness"):
+            c.pop("jpeg_bad")        # no JPEG of its own canvas
+        counts[kind].append(c)
+
+    t0 = time.perf_counter()
+    prev, ious = None, []
+    with torch.inference_mode():
+        for j in frames:
+            got = cell.output(win, j)
+            n = got["n"]
+            want = cell.reference_answer(ref, n, got["hint_of"])
+            read("program", got, want)
+            ious.append(matte_iou(got["alpha"], cell.silhouettes[n % bodies]))
+            c = cell.reference_answer(ctrl, n, got["hint_of"])
+            read("control", dict(c, jpeg=got["jpeg"]), want)
+            subject = ~(got["render_tex"].float() >= 1.0).all(dim=-1)
+            bg = torch.floor(floor(*camera(cell.config["serve"], n)) * 255.0)
+            read("witness", dict(got, served=torch.where(
+                subject[..., None], got["served"], bg.to(torch.uint8))), want)
+            read("shifted", dict(got, depth=got["depth"] + 2.0), want)
+            read("empty", dict(got, valid=torch.zeros_like(got["valid"])),
+                 want)
+            canvas = got["served"].cpu().numpy()
+            for q in (75, 50):
+                read(f"jpeg_q{q}", dict(got, jpeg=encode_jpeg(canvas, q)),
+                     want)
+            if prev is not None:
+                read("stale", dict(prev, jpeg=got["jpeg"],
+                                   served=prev["served"]), want)
+            prev = got
+    cell._sync()
+    return {"seed": seed, "frames": len(frames), "window_frames": win.frames,
+            "fps": win.frames / win.elapsed, "tolerances": tols,
+            "check_s": time.perf_counter() - t0,
+            "matte_iou": ious,
+            **{k: compare.pooled(v) for k, v in counts.items()},
+            **{f"{k}_errors": [{n: v for n, v in f.items()
+                                if n.endswith("_p995")} for f in counts[k]]
+               for k in ("program", "control")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -125,14 +203,18 @@ def main(argv=None) -> int:
     card.pin()
     manifest = Manifest()
     rows = []
+    spec = manifest.traffic(manifest.workload(args.workload)["traffic"])
+    read = serve_readings if spec.get("driver") == "serve" else readings
     for seed in (int(s) for s in args.seeds.split(",")):
-        rows.append(readings(manifest, args.workload, seed, args.seconds))
+        rows.append(read(manifest, args.workload, seed, args.seconds))
         print(json.dumps(rows[-1]), flush=True)
     summary = {"workload": args.workload, "seeds": len(rows), "card": card.smi()}
     for kind in ("program", "program_f32", "control", "program_bf16",
-                 "control_fp8", "stale", "shifted", "empty"):
+                 "control_fp8", "witness", "stale", "shifted", "empty",
+                 "jpeg_q75", "jpeg_q50"):
         if kind in rows[0]:
-            pick = max if kind in ("program", "program_f32") else min
+            pick = max if kind in ("program", "program_f32",
+                                   "witness") else min
             summary[kind] = {k: pick(r[kind][k] for r in rows)
                              for k in rows[0][kind]}
     print(json.dumps(summary), flush=True)

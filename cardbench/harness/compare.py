@@ -25,7 +25,8 @@ level which surface a ray refines, and where an occupancy sits near the
 iso-level there, bf16 rounding alone moves a thin limb's crossing or
 silhouette in a frame. The silhouette is counted once, in
 ``valid_disagree``; the renders are compared where both frames have the
-subject.
+subject. A served frame's own shares (the matte, the served canvas over
+the subject and over the floor, the JPEG) are ``serve.served_counts``'s.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from __future__ import annotations
 import torch
 
 NUMBERS = ("valid_disagree", "valid_bad", "depth_bad", "norm_bad",
-           "tex_bad", "sdf_bad")
+           "tex_bad", "sdf_bad", "alpha_bad", "served_bad", "floor_bad",
+           "jpeg_bad")
 
 
 def _subject(img: torch.Tensor) -> torch.Tensor:

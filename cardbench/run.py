@@ -9,12 +9,14 @@ its per-layer metrics' readers are found by the names in ``BENCHMARK.json``
 port's kernels (only a checkout's first run compiles), load or draw the
 weights, render the traffic on the device, warm up every shape the window
 runs, then drive ``ReconEngine.frame`` in a closed loop for ``--seconds``
-(``harness/cell.py``). With ``--trace 0`` the result's metrics are the
-cell's end-to-end metrics; with ``--trace 1`` the window is followed by a
-profiled stretch of ``PROFILE_FRAMES`` frames and the metrics are the
-cell's per-layer ones. After the window and the reading of the peak
-memory, the engine is freed and a sample of the window's frames is held to
-the plain reference (``reference/``), each number beside its limit.
+(``harness/cell.py``), or, where the traffic file names a ``driver``, the
+cell of ``harness/<driver>.py`` (``serve``: the served demo). With
+``--trace 0`` the result's metrics are the cell's end-to-end metrics;
+with ``--trace 1`` the window is followed by a profiled stretch of
+``PROFILE_FRAMES`` frames and the metrics are the cell's per-layer ones.
+After the window and the reading of the peak memory, the engine is
+freed and a sample of the window's frames is held to the plain reference
+(``reference/``), each number beside its limit.
 
 Earlier lines of standard output are JSON objects with an ``info`` key
 (the card, versions, pinned settings, set-up times, the traced stretch's
@@ -31,6 +33,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -55,8 +58,8 @@ PROFILE_FRAMES = 20
 @dataclasses.dataclass
 class Context:
     """What a per-layer reader reads (``metrics/<name>.py``: ``read``)."""
-    cell: Cell
-    window: object             # cell.Window: the unprofiled stretch
+    cell: Cell                 # or the cell class its traffic names
+    window: object             # its Window: the unprofiled stretch
     trace: object              # trace.Trace: the profiled stretch
 
 
@@ -71,10 +74,20 @@ def end_to_end(win, setup_s: float) -> dict:
             "setup_s": setup_s}
 
 
+def driver(spec: dict):
+    """The cell class of a traffic mix: ``Cell``, or the ``CELL`` of
+    ``harness/<driver>.py`` where the mix names a ``driver``."""
+    if "driver" not in spec:
+        return Cell
+    return importlib.import_module(
+        f"cardbench.harness.{spec['driver']}").CELL
+
+
 def run(manifest: Manifest, workload: str, seed: int, seconds: float,
         traced: bool, device="cuda", t_start: float = T_START):
     """-> (result dict, the numbers compared)."""
-    cell = Cell(manifest, workload, seed, device)
+    cell = driver(manifest.traffic(manifest.workload(workload)["traffic"]))(
+        manifest, workload, seed, device)
     info("settings", pinned=card.pin(), **card.versions())
     cell.setup()
     cell.warm_up()

@@ -36,7 +36,10 @@ def test_run_imports_no_jax():
 
 def test_reference_imports_nothing_of_the_port():
     names = _top_level("import cardbench.reference.frame as f, "
-                       "cardbench.reference.nets, cardbench.reference.recon\n"
+                       "cardbench.reference.nets, cardbench.reference.recon, "
+                       "cardbench.reference.served, "
+                       "cardbench.reference.segmentation, "
+                       "cardbench.reference.floor, cardbench.reference.jpeg\n"
                        "f.frame_path('dense')")
     assert not names & (FORBIDDEN | {"monoport_tpu_torch"})
 
@@ -49,5 +52,17 @@ def test_a_run_loads_no_jax():
         "res, _ = run.run(SmallManifest(bodies=2), 'hg4-orbit', 5, 0.5, "
         "False, device='cpu', t_start=time.perf_counter())\n"
         "assert res['correct'], res")
+    assert "monoport_tpu_torch" in names
+    assert not names & FORBIDDEN
+
+
+def test_a_served_run_loads_no_jax():
+    names = _top_level(
+        "import torch; torch.set_num_threads(2)\n"
+        "from cardbench.tests.test_cardbench_serve import ServeManifest\n"
+        "from cardbench import run\n"
+        "res, _ = run.run(ServeManifest(), 'hg4-serve', 5, 2.0, False, "
+        "device='cpu', t_start=time.perf_counter())\n"
+        "assert res['attempted'] > 0, res")
     assert "monoport_tpu_torch" in names
     assert not names & FORBIDDEN
