@@ -23,7 +23,10 @@ non-zero, printing no result, without either. Phases (one JSON line each):
    each tap's mixed row); the bf16 anchored and gathering rows also time
    their weighted-row pass (csrc/mix_rows.cuh) beside its byte bound and
    the wgmma launch alone, and hold the pass to ``mix_rows_plain`` (equal
-   or one bf16 ulp apart, the differing elements counted);
+   or one bf16 ulp apart, the differing elements counted); the last rows
+   run kernel 2's view-pooled form (``fused_mlp.apply_mlp_views``, f32
+   only) on the committed netG's head at phase 21's levels, 4 views a
+   point, against ``apply_mlp_views_plain``;
 4. frame: the committed netG + netC at full width through ReconEngine at
    the real-time operating point, bf16, a few frontal frames timed; the
    launch counts are zeroed just before and read just after, and must be
@@ -231,6 +234,20 @@ non-zero, printing no result, without either. Phases (one JSON line each):
     replaying frame. Phase 11 also holds the served engine's backbone
     calls to one capture a signature and replays after, and its stages to
     one a key (the capture runs in the device stage's thread).
+21. views (after phase 6): PIFu's multi-view netG (``num_views`` 4: the
+    committed netG's weights under the view pooling, the benchmark's
+    hg4-mv4-dense deployment) on the f32 dense frame (TF32 off,
+    ``frame_check.quality_config``, no netC), one capsule body
+    (``evaluate.BENCH_SEED``) rendered at 512^2 by a ring of four
+    orthographic cameras at yaw 0, 90, 180 and 270 degrees (view 0 the
+    identity): frames timed with the counts zeroed just before and read
+    just after (the per-point MLP once a hierarchy level, no other
+    kernel), no stream sync, ``recon_counts`` within the budgets, peak
+    memory, the profile (a projection and a view-pooled layer launch a
+    chunk of every level; no other MLP kernel), the frame held to the same
+    frame through the plain kernels on the card (``recon_counts`` equal,
+    the volume within 2e-3), and a line summing the kernel phase's
+    view-pooled rows over the frame's levels (ms, plain ms, bound ms).
 
 Then the kernels line (four kernels), the card line, and last the result
 line. Any failed check raises, and the script exits non-zero.
@@ -270,6 +287,10 @@ ROUTES = {("fused_ray_mlp", "bf16"): "sm90_wgmma",
           ("fused_gather_mlp", "bf16"): "sm90_mix_wgmma"}
 # frames the serve phase streams through the demo's pipeline
 SERVE_FRAMES = 8
+# PIFu's multi-view netG of phase 21 (the hg4-mv4-dense cell's): its views
+# a subject and the ring's camera yaws, degrees about the vertical axis
+VIEWS = 4
+RING_YAWS = (0.0, 90.0, 180.0, 270.0)
 
 
 def emit(obj: dict) -> None:
@@ -429,6 +450,33 @@ def point_mlp_work(head, points: int, dtype: str):
     op = 2 if dtype == "bf16" else 4
     nbytes = points * c_in * op + n_params * op + points * outs[-1] * 4
     return flops, flops / PEAK_FLOPS[dtype], nbytes
+
+
+def views_mlp_work(head, points: int, views: int):
+    """The same for the view-pooled per-point MLP (f32): the layers up to
+    the pool (``n_layers // 2``) once a view, the later layers once a
+    point; the bytes are every view's input row, the weights and the
+    output, each once."""
+    c_in, outs, n_params = _head_dims(head)
+    ins = [c_in] + [o + c_in for o in outs[:-1]]
+    pool = len(outs) // 2
+    per_view = sum(i * o for i, o in zip(ins[:pool + 1], outs[:pool + 1]))
+    pooled = sum(i * o for i, o in zip(ins[pool + 1:], outs[pool + 1:]))
+    flops = 2.0 * points * (views * per_view + pooled)
+    nbytes = points * views * c_in * 4 + n_params * 4 + points * outs[-1] * 4
+    return flops, flops / PEAK_FLOPS["f32"], nbytes
+
+
+def views_recompute(head, views: int) -> float:
+    """The view-pooled kernel's operations over those of its bound: it
+    projects every view's row for every layer (the later layers take the
+    views' mean projection), the bound each pooled layer's once."""
+    c_in, outs, _ = _head_dims(head)
+    pool = len(outs) // 2
+    hidden = [a * b for a, b in zip(outs[:-1], outs[1:])]
+    done = (views * c_in * sum(outs) + views * sum(hidden[:pool])
+            + sum(hidden[pool:]))
+    return 2.0 * done / views_mlp_work(head, 1, views)[0]
 
 
 def gather_mlp_work(head, rays: int, taps: int, dtype: str, map_shape):
@@ -648,6 +696,12 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                 3),
                ("fused_gather_mlp", "fine_192x6_w2048u", unsat, 36864, 6,
                 1)]
+    # kernel 2's view-pooled form (f32 only) on the committed netG's head at
+    # phase 21's levels: the dense hierarchy's coarse lattice and budgets,
+    # VIEWS rows a point
+    shapes += [("fused_mlp_views", f"views_level_{n}", netG, n, 1, 1)
+               for n in (dense_levels.resolutions[0] ** 3,
+                         *dense_levels.budgets[1:])]
     on_path = {k[0]: k[3] for k in KERNELS}
     rows = []
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -655,13 +709,16 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
         # has no scalar z column: only the per-point kernel takes it)
         packs = {}
         for kernel, _, n, *_ in shapes:
-            kind = "point" if kernel == "fused_mlp" else "ray"
+            kind = ("point" if kernel in ("fused_mlp", "fused_mlp_views")
+                    else "ray")
             if (id(n), kind) not in packs:
                 pack = (tmlp.pack_mlp_params if kind == "point"
                         else tray.pack_ray_mlp_params)
                 packs[id(n), kind] = pack(n.surface_classifier, dtype=dtype,
                                           device="cuda")
         for i, (kernel, name, net, rays, taps, k) in enumerate(shapes):
+            if kernel == "fused_mlp_views" and dname == "bf16":
+                continue                            # no bf16 form
             head = net.surface_classifier
             rng = np.random.RandomState(100 + i)
             cuda = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
@@ -679,6 +736,12 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
                         else (cuda(rng.randn(1, rays, p.c_f)),))
                 fn, plain = tmlp.apply_mlp, tmlp.apply_mlp_plain
                 work = point_mlp_work(head, rays, dname)
+            elif kernel == "fused_mlp_views":
+                p = packs[id(net), "point"]
+                args = (cuda(rng.randn(1, rays, VIEWS, p.c_f)),)
+                fn = lambda p, x: tmlp.apply_mlp_views(p, x, VIEWS)
+                plain = lambda p, x: tmlp.apply_mlp_views_plain(p, x, VIEWS)
+                work = views_mlp_work(head, rays, VIEWS)
             else:
                 p = packs[id(net), "ray"]
                 z = cuda(rng.uniform(-1.3, 1.3, (1, rays, taps)))
@@ -721,6 +784,9 @@ def kernel_phase(netG, netC, soft, tray, tmlp, tgather):
             # the share of its roofline (the f32 rows' bound is the 67
             # TFLOP/s FMA peak)
             row["roofline"] = row["bound_ms"] / row["ms"]
+            if kernel == "fused_mlp_views":
+                row["views"] = VIEWS
+                row["recompute"] = views_recompute(head, VIEWS)
             if net is wide_g or net is unsat:
                 row["unsaturated_share"] = float(
                     ((want > 0.02) & (want < 0.98)).float().mean().item())
@@ -780,11 +846,13 @@ def kernel_mode(p, dname: str) -> str:
     return "activation_scratch" if p.f32_scratch else "shared"
 
 
-def ray_chunks(net, rays: int, taps: int, block_rows: int) -> int:
+def ray_chunks(net, rays: int, taps: int, block_rows: int,
+               views: int = 1) -> int:
     """The chunks one f32 ray-MLP or per-point MLP call of ``net``'s head
     walks (one ``xproj_kernel`` and one ``mlp_kernel`` launch each): the
     launcher's rule in ``csrc/mlp_tiles.cuh`` (``launch``) for its bounded
-    scratch, whole waves of ``block_rows``-row blocks where one fits."""
+    scratch, whole waves of ``block_rows``-row blocks where one fits; a
+    view-pooled call's ``rays`` are its rows, whole points a chunk."""
     import torch
 
     from monoport_tpu_torch.ops.cuda.fused_ray_mlp import XP_SCRATCH_BYTES
@@ -798,6 +866,7 @@ def ray_chunks(net, rays: int, taps: int, block_rows: int) -> int:
         return 1
     if wave >= 1 and chunk >= wave:
         chunk -= chunk % wave
+    chunk -= chunk % views
     return -(-rays // chunk)
 
 
@@ -828,8 +897,8 @@ def find_syncs(fn) -> list[str]:
 
 
 def profile_phase(eng, image, calib, card: str, frame_ms: float,
-                  view: str, frames: int = 2) -> list:
-    """Device time by kernel over a few bf16 frames (torch.profiler), and
+                  view: str, frames: int = 2, dtype: str = "bf16") -> list:
+    """Device time by kernel over a few frames (torch.profiler), and
     the device's idle share of the unprofiled median frame time. -> [(kernel
     name, ms a frame, calls a frame)]."""
     import torch
@@ -848,7 +917,7 @@ def profile_phase(eng, image, calib, card: str, frame_ms: float,
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
-    emit({"phase": "profile", "view": view, "dtype": "bf16",
+    emit({"phase": "profile", "view": view, "dtype": dtype,
           "frames": frames,
           "wall_ms_per_frame": wall_ms, "device_ms_per_frame": busy,
           "device_idle_share": 1.0 - busy / frame_ms,
@@ -1078,7 +1147,8 @@ def plain_kernels():
     from monoport_tpu_torch.ops.cuda import fused_mlp as tmlp
     from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
 
-    kept = (engine.apply_ray, engine.apply_anchor, engine.apply_mlp)
+    kept = (engine.apply_ray, engine.apply_anchor, engine.apply_mlp,
+            engine.apply_mlp_views)
     run = frame_graphs.FrameGraphs.run
 
     def eager(self, name, fn, inputs, dtypes=None, extra=None,
@@ -1088,11 +1158,13 @@ def plain_kernels():
     engine.apply_ray = tray.apply_ray_plain
     engine.apply_anchor = tray.apply_anchor_plain
     engine.apply_mlp = tmlp.apply_mlp_plain
+    engine.apply_mlp_views = tmlp.apply_mlp_views_plain
     frame_graphs.FrameGraphs.run = eager
     try:
         yield
     finally:
-        engine.apply_ray, engine.apply_anchor, engine.apply_mlp = kept
+        (engine.apply_ray, engine.apply_anchor, engine.apply_mlp,
+         engine.apply_mlp_views) = kept
         frame_graphs.FrameGraphs.run = run
 
 
@@ -1387,6 +1459,154 @@ def dense_phases(netG, netC, counters: dict, card: str) -> dict:
             or diffs["render_tex"] > 1e-5:
         fail(f"frames() differs from frame(): {diffs}")
     return total
+
+
+def ring_calibs(yaws) -> "np.ndarray":
+    """[V, 4, 4] calibs of orthographic cameras at ``yaws`` degrees about
+    the vertical (y) axis, pitch 0: view v maps X to R_y(yaw_v) X, so a
+    ring starting at yaw 0 has the identity for view 0."""
+    import numpy as np
+
+    out = np.tile(np.eye(4, dtype=np.float32), (len(yaws), 1, 1))
+    for v, yaw in enumerate(yaws):
+        c, s = np.cos(np.radians(yaw)), np.sin(np.radians(yaw))
+        out[v, :3, :3] = [[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]
+    return out
+
+
+def views_phase(counters: dict, rows: list, card: str) -> dict:
+    """Phase 21: PIFu's multi-view netG on the f32 dense frame (module
+    docstring). -> launches by kernel."""
+    import numpy as np
+    import torch
+
+    from monoport_tpu_torch import evaluate, frame_check
+    from monoport_tpu_torch.config import get_cfg_defaults
+    from monoport_tpu_torch.engine import ReconEngine
+    from monoport_tpu_torch.ops.cuda import fused_ray_mlp as tray
+    from monoport_tpu_torch.training.datasets.capsule import render_front
+    from monoport_tpu_torch.weights import DATA, build_net, load_params
+
+    opt = get_cfg_defaults().netG.clone()
+    opt.num_views = VIEWS
+    params, _ = load_params(os.path.join(DATA, "netg_capsule.npz"))
+    net = build_net(opt, params, "cuda")
+    calibs = ring_calibs(RING_YAWS)
+    a, b, r = evaluate.capsule_body(evaluate.BENCH_SEED, "cuda")
+    images = []
+    for c in calibs:
+        rot = torch.as_tensor(c[:3, :3], device="cuda")
+        images.append(render_front((a @ rot.T, b @ rot.T, r), 512)[0])
+    images = torch.stack(images)
+    recon, cfg = frame_check.quality_config(torch.float32)
+    levels = len(recon.resolutions)
+    res = recon.resolutions[-1]
+    torch.cuda.reset_peak_memory_stats()
+    eng = ReconEngine(net, None, recon=recon, config=cfg)
+    run = lambda: eng.frame(images, None, calibs)
+    run()                                  # warm-up: captures netG's graph
+    torch.cuda.synchronize()
+    syncs = find_syncs(run)
+    if syncs:
+        fail(f"a multi-view dense frame synchronised the stream at {syncs}")
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for _ in range(FRAMES):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want["fused_mlp"] = levels * FRAMES
+    if launches != want:
+        fail(f"multi-view dense frames launched {launches} in {FRAMES} "
+             f"frames, expected the per-point MLP once a level, {want}")
+    shapes = {"depth": (res, res), "valid": (res, res),
+              "render_norm": (256, 256, 3), "mask": (256, 256, 1),
+              "sdf": (res, res, res), "recon_counts": (levels - 1,)}
+    got = {k: tuple(v.shape) for k, v in out.items()
+           if k != "compact_dropped"}
+    if got != shapes:
+        fail(f"multi-view dense frame output shapes {got}")
+    for k, v in (("depth", out["depth"][out["valid"]]),
+                 ("render_norm", out["render_norm"])):
+        if not torch.isfinite(v).all():
+            fail(f"multi-view dense frame: non-finite {k}")
+    counts = out["recon_counts"].tolist()
+    med = statistics.median(times)
+    emit({"phase": "views", "dtype": "f32", "views": VIEWS,
+          "yaws": list(RING_YAWS), "frames": FRAMES,
+          "frame_ms_median": med, "fps": 1e3 / med, "frame_ms": times,
+          "launches_per_frame": {k: v / FRAMES for k, v in launches.items()},
+          "host_syncs_per_frame": len(syncs), "recon_counts": counts,
+          "budgets": list(recon.budgets[1:]),
+          "valid_fraction": float(out["valid"].float().mean()),
+          "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+          "card": card})
+    if any(c > b for c, b in zip(counts, recon.budgets[1:])):
+        fail(f"the multi-view dense frame overflowed its budgets: {counts}")
+    if not out["valid"].any():
+        fail("the multi-view dense frame found no surface in view 0")
+
+    # a projection and a view-pooled layer launch a chunk of every level
+    kernels = profile_phase(eng, images, calibs, card, med, "views",
+                            dtype="f32")
+    calls = mlp_calls(kernels)
+    pooled = sum(n for name, _, n in kernels if "views_mlp_kernel" in name)
+    chunks = sum(ray_chunks(net, n * VIEWS, 1, tray.F32_BM, VIEWS)
+                 for n in (recon.resolutions[0] ** 3, *recon.budgets[1:]))
+    want_calls = {"wgmma_point": 0, "wgmma_ray": 0, "wgmma_anchor": 0,
+                  "mix_rows": 0, "mlp_kernel": chunks,
+                  "xproj_kernel": chunks}
+    mlp_ms = sum(ms for name, ms, _ in kernels
+                 if "views_mlp_kernel" in name or "xproj_kernel" in name)
+    emit({"phase": "views_kernel_calls", "dtype": "f32", "per_frame": calls,
+          "views_mlp_kernel": pooled, "expected": want_calls,
+          "device_ms_per_frame": mlp_ms})
+    if calls != want_calls or pooled != chunks:
+        fail(f"the multi-view dense frame's device kernels a frame {calls} "
+             f"({pooled} view-pooled): expected a projection and a "
+             f"view-pooled layer launch a chunk, {want_calls}")
+
+    # the same frame through the plain versions of the kernels on the card
+    with plain_kernels():
+        plain = run()
+    torch.cuda.synchronize()
+    both = out["valid"] & plain["valid"]
+    cmp = {"sdf_max_diff": float((out["sdf"] - plain["sdf"]).abs().max()),
+           "recon_counts_equal": counts == plain["recon_counts"].tolist(),
+           "valid_disagree": float((out["valid"] != plain["valid"])
+                                   .float().mean()),
+           "depth_max_diff": float((out["depth"] - plain["depth"])[both]
+                                   .abs().max()) if both.any() else 0.0}
+    emit({"phase": "views_vs_plain", "dtype": "f32", **cmp, "card": card})
+    if not (cmp["recon_counts_equal"] and cmp["sdf_max_diff"] <= 2e-3):
+        fail(f"the multi-view dense frame against its plain-kernel run: "
+             f"{cmp}")
+    del plain
+
+    # the kernel phase's view-pooled rows summed over the frame's levels
+    mine = [r for r in rows if r["kernel"] == "fused_mlp_views"]
+    entry = {"phase": "views_kernel", "name": "fused_mlp_views",
+             "route": "cuda", "source": os.path.join(CSRC, "fused_mlp.cu"),
+             "dtype": "f32", "views": VIEWS, "launches_per_frame": levels,
+             "ms": sum(r["ms"] for r in mine),
+             "plain_ms": sum(r["plain_ms"] for r in mine),
+             "bound_ms": sum(r["bound_ms"] for r in mine),
+             "bound_by": "operations" if all(
+                 r["bound_by"] == "operations" for r in mine) else "bytes",
+             "library_ms": None,
+             "max_abs_err": max(r["max_abs_err"] for r in mine),
+             "recompute": mine[0]["recompute"],
+             "frame_device_ms": mlp_ms, "card": card}
+    entry["roofline"] = entry["bound_ms"] / entry["ms"]
+    emit(entry)
+    del eng, net, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 # phase 16: the engine's mesh and the data-parallel step. The two ranks
@@ -3242,6 +3462,8 @@ def main() -> int:
     launches, frontal = frame_phases(netG, netC, counters, card)
     graphs_phase(netG, netC, card)
     for name, n in dense_phases(netG, netC, counters, card).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in views_phase(counters, rows, card).items():
         launches[name] = launches.get(name, 0) + n
     for name, n in softonehot_phase(netC, counters, card).items():
         launches[name] = launches.get(name, 0) + n

@@ -119,6 +119,9 @@ def _net_defaults(backbone: str, head: str, loss: str) -> CfgNode:
                          "soft_dim": 64})
     net.head = CN({"IMF": head})
     net.loss = CN({"IMF": loss})
+    # not in the tree, which is the JAX package's: ``num_views``, the views
+    # of one subject a multi-view net pools (models/monoport_net.py), read
+    # with the default 1 and set as any key (``netG.num_views 4``)
     return net
 
 

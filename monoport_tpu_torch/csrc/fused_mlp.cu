@@ -70,6 +70,24 @@ int fused_mlp_forward(const void* x, float* out, float* xp, int xp_rows,
                      stream);
 }
 
+// The f32 route's view-pooled form (PIFu's multi-view head): x [N, C_in
+// padded] f32 holding `views` rows a point, point-major; out [N / views,
+// out_dim] f32. Layers up to n_layers / 2 run a row, their activations are
+// then mean-pooled over each point's views, and the later layers run on the
+// pooled rows with the views' mean projection as their skip term
+// (mlp_tiles.cuh: views_mlp_kernel). The other arguments as
+// fused_mlp_forward. bf16 has no such form.
+int fused_mlp_views_forward(const void* x, float* out, float* xp,
+                            int xp_rows, float* hs, int h_slots,
+                            const void* wf, const void* wh, const float* wz,
+                            const float* b, const int* widths, int n_layers,
+                            int out_dim, int last_op, int N, int views,
+                            void* stream) {
+  return mlp_forward(x, nullptr, nullptr, out, xp, xp_rows, hs, h_slots, wf,
+                     wh, wz, b, widths, n_layers, out_dim, last_op, N, 1, 1,
+                     stream, nullptr, nullptr, views);
+}
+
 // The bf16 route. x [N, c_in] bf16 (c_in a multiple of 32); w the packed
 // weight stream (ops/cuda/wgmma.py: tile_stream); bias [sum(widths)]
 // f32; widths the n_layers kernel widths; out [N, out_dim] f32. hs null

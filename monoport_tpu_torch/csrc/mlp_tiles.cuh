@@ -552,6 +552,49 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   xproj_columns(sA, c_f, ring, xp, r0, R, ntot, -1);
 }
 
+// The mean of a point's views' shared projections at 4 neighbouring columns
+// from col: xp rows point * views .. point * views + views - 1, summed in
+// view order, then scaled by inv = 1 / views (a power of two: exact).
+__device__ __forceinline__ void view_proj(float* sp,
+                                          const float* __restrict__ xp,
+                                          int point, int views, float inv,
+                                          int ntot, int col) {
+  const float* p = xp + (size_t)point * views * ntot + col;
+  load4(sp, p);
+  for (int v = 1; v < views; ++v) {
+    float t[4];
+    load4(t, p + (size_t)v * ntot);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sp[j] += t[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sp[j] *= inv;
+}
+
+// Pool a block's activations of width w (k4-major) over each group of views
+// rows in place: every row of a group gets the group's mean (summed in view
+// order, then scaled by inv). The FMA warps.
+__device__ __forceinline__ void pool_views(float* h, int w, int views,
+                                           float inv) {
+  const int groups = kTileBM / views, w4 = w / 4;
+  for (int q = threadIdx.x; q < groups * w4; q += kThreads) {
+    const int m0 = (q % groups) * views, k = (q / groups) * 4;
+    float s[4];
+    load4(s, h + quad(m0, k));
+    for (int v = 1; v < views; ++v) {
+      float t[4];
+      load4(t, h + quad(m0 + v, k));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] += t[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] *= inv;
+    for (int v = 0; v < views; ++v)
+      *reinterpret_cast<float4*>(h + quad(m0 + v, k)) =
+          make_float4(s[0], s[1], s[2], s[3]);
+  }
+}
+
 // The per-(ray, tap) MLP over BM flattened rows (row = ray * taps + tap).
 // z may be null (no z term). Mixed: wk holds the rows' hat weights over the
 // ray's n_anchors input rows; else a ray has one input row of weight 1.
@@ -560,13 +603,18 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // slot of the device-memory activation scratch hs ([gridDim.x, BM, w_a +
 // w_b]) and a walk over every row block, gridDim.x apart. w_a, w_b: the
 // widest even- and odd-index layer, the two buffers' widths (k4-major).
-template <bool Mixed, bool Scratch>
-__global__ void __launch_bounds__(kTileThreads, 1)
-    mlp_kernel(const float* __restrict__ xp, const float* __restrict__ z,
-               const float* __restrict__ wk, const float* __restrict__ wh,
-               const float* __restrict__ wz, const float* __restrict__ bias,
-               float* __restrict__ out, int rows, int taps, int n_anchors,
-               int w_a, int w_b, float* hs, MlpDims d) {
+// Pooled (the view-pooled form, per-point rows, taps 1): rows are `views`
+// views of each point, point-major; after layer P = n_layers / 2 each
+// group's activations are replaced by their mean (pool_views), layers
+// after P take the mean of the group's projections (view_proj) as their
+// skip term, and the last layer writes one output row a point.
+template <bool Mixed, bool Scratch, bool Pooled>
+__device__ __forceinline__ void mlp_rows(
+    const float* __restrict__ xp, const float* __restrict__ z,
+    const float* __restrict__ wk, const float* __restrict__ wh,
+    const float* __restrict__ wz, const float* __restrict__ bias,
+    float* __restrict__ out, int rows, int taps, int n_anchors, int w_a,
+    int w_b, float* hs, const MlpDims& d, int views) {
   constexpr int BM = kTileBM;
   extern __shared__ __align__(128) unsigned char smem[];
   Ring ring;
@@ -580,6 +628,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const int n_blocks = (rows + BM - 1) / BM;
   const int stride = Scratch ? gridDim.x : n_blocks;
   const int L = d.n_layers;
+  const int pool = Pooled ? L / 2 : L;
+  const float inv = 1.f / views;
   if (threadIdx.x >= kThreads) {
     if (threadIdx.x == kThreads)
       for (int blk = blockIdx.x; blk < n_blocks; blk += stride) {
@@ -662,8 +712,12 @@ __global__ void __launch_bounds__(kTileThreads, 1)
              float v[4] = {0.f, 0.f, 0.f, 0.f};
              if (ray >= 0) {
                float sp[4], wzv[4], bv[4];
-               shared_proj<Mixed>(sp, xp, s_w, m, ray, n_anchors, d.ntot,
-                                  off + col);
+               if (Pooled && i > pool)
+                 view_proj(sp, xp, ray / views, views, inv, d.ntot,
+                           off + col);
+               else
+                 shared_proj<Mixed>(sp, xp, s_w, m, ray, n_anchors, d.ntot,
+                                    off + col);
                load4(wzv, wz + off + col);
                load4(bv, bias + off + col);
                const float zm = s_z[m];
@@ -673,30 +727,61 @@ __global__ void __launch_bounds__(kTileThreads, 1)
                                  d.last_op);
              }
              if (last) {
+               const bool first = !Pooled || (ray >= 0 && ray % views == 0);
+               const size_t o = Pooled ? (row0 + m) / views : row0 + m;
 #pragma unroll
                for (int j = 0; j < 4; ++j)
-                 if (ray >= 0 && col + j < d.out_dim)
-                   out[(size_t)(row0 + m) * d.out_dim + col + j] = v[j];
+                 if (ray >= 0 && first && col + j < d.out_dim)
+                   out[o * d.out_dim + col + j] = v[j];
              } else {
                *reinterpret_cast<float4*>(dst + quad(m, col)) =
                    make_float4(v[0], v[1], v[2], v[3]);
              }
            });
       fma_sync();
+      if (Pooled && i == pool) {
+        pool_views(dst, d.width[i + 1], views, inv);
+        fma_sync();
+      }
     }
   }
+}
+
+template <bool Mixed, bool Scratch>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    mlp_kernel(const float* __restrict__ xp, const float* __restrict__ z,
+               const float* __restrict__ wk, const float* __restrict__ wh,
+               const float* __restrict__ wz, const float* __restrict__ bias,
+               float* __restrict__ out, int rows, int taps, int n_anchors,
+               int w_a, int w_b, float* hs, MlpDims d) {
+  mlp_rows<Mixed, Scratch, false>(xp, z, wk, wh, wz, bias, out, rows, taps,
+                                  n_anchors, w_a, w_b, hs, d, 1);
+}
+
+// The view-pooled per-point form (mlp_rows' Pooled): rows = views * points.
+template <bool Scratch>
+__global__ void __launch_bounds__(kTileThreads, 1)
+    views_mlp_kernel(const float* __restrict__ xp,
+                     const float* __restrict__ wh,
+                     const float* __restrict__ wz,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int rows, int views, int w_a, int w_b, float* hs,
+                     MlpDims d) {
+  mlp_rows<false, Scratch, true>(xp, nullptr, nullptr, wh, wz, bias, out,
+                                 rows, 1, 1, w_a, w_b, hs, d, views);
 }
 
 // gidx, gwgt: null, or the [R, 4] bilinear taps of the gathering form; feat
 // is then the [*, C_f] table and is not walked with the rays.
 // hs, h_slots: null and 0, or the activation scratch of h_slots blocks
-// ([h_slots, BM, w_a + w_b] f32).
+// ([h_slots, BM, w_a + w_b] f32). views > 1: the view-pooled form
+// (views_mlp_kernel; R rows, R / views points, one output row a point).
 inline int launch(const float* feat, const float* z, const float* wk,
                   float* out, float* xp, int xp_rows, float* hs, int h_slots,
                   const float* wf, const float* wh, const float* wz,
                   const float* b, const MlpDims& d, int R, int taps,
                   int n_anchors, cudaStream_t stream, const int* gidx,
-                  const float* gwgt) {
+                  const float* gwgt, int views) {
   constexpr int BM = kTileBM;
   const int c_f = d.width[0];
   int max_even = 0, max_odd = 0;
@@ -724,9 +809,13 @@ inline int launch(const float* feat, const float* z, const float* wk,
   if (err != cudaSuccess) return (int)err;
   auto kernel = hs ? (wk ? mlp_kernel<true, true> : mlp_kernel<false, true>)
                    : (wk ? mlp_kernel<true, false> : mlp_kernel<false, false>);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_m);
+  auto pooled = hs ? views_mlp_kernel<true> : views_mlp_kernel<false>;
+  err = views > 1 ? cudaFuncSetAttribute(
+                        pooled, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                        (int)smem_m)
+                  : cudaFuncSetAttribute(
+                        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                        (int)smem_m);
   if (err != cudaSuccess) return (int)err;
 
   // rays a chunk: all of them if the scratch holds them, else what it
@@ -744,6 +833,8 @@ inline int launch(const float* feat, const float* z, const float* wk,
     chunk = R;
   else if (wave_rays >= 1 && chunk >= wave_rays)
     chunk -= chunk % wave_rays;
+  if (chunk < R) chunk -= chunk % views;   // whole points a chunk
+  if (chunk < 1) return 1006;
 
   for (int r0 = 0; r0 < R; r0 += chunk) {
     const int n = (R - r0 < chunk) ? R - r0 : chunk;
@@ -764,11 +855,16 @@ inline int launch(const float* feat, const float* z, const float* wk,
     const int rows = n * taps;
     const size_t row0 = (size_t)r0 * taps;
     const int blocks = (rows + BM - 1) / BM;
-    kernel<<<hs && blocks > h_slots ? h_slots : blocks, kTileThreads, smem_m,
-             stream>>>(
-        xp, z ? z + row0 : nullptr, wk ? wk + row0 * n_anchors : nullptr, wh,
-        wz, b, out + row0 * d.out_dim, rows, taps, n_anchors, w_a, w_b, hs,
-        d);
+    const int grid = hs && blocks > h_slots ? h_slots : blocks;
+    if (views > 1)
+      pooled<<<grid, kTileThreads, smem_m, stream>>>(
+          xp, wh, wz, b, out + row0 / views * d.out_dim, rows, views, w_a,
+          w_b, hs, d);
+    else
+      kernel<<<grid, kTileThreads, smem_m, stream>>>(
+          xp, z ? z + row0 : nullptr, wk ? wk + row0 * n_anchors : nullptr,
+          wh, wz, b, out + row0 * d.out_dim, rows, taps, n_anchors, w_a, w_b,
+          hs, d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -787,6 +883,10 @@ inline int launch(const float* feat, const float* z, const float* wk,
 // i's [out_i, out_(i-1)] cut the same way); wz, b [sum(out_i)] f32.
 // gidx [R, 4] i32 and gwgt [R, 4] f32, both or neither: the gathering form,
 // in which feat is the [*, C] table that gidx indexes (n_anchors must be 1).
+// views > 1: the view-pooled per-point form: feat [R, C] holds `views` rows
+// a point, point-major (a power of two up to 32 dividing R; no z, weights or
+// gather; taps 1; n_layers >= 3, so the pool layer n_layers / 2 is a hidden
+// one), out [R / views, out_dim].
 // Returns a cudaError_t (0 on success); 1000 + code for a bad argument.
 inline int mlp_forward(const void* feat, const float* z,
                        const float* wk, float* out, float* xp, int xp_rows,
@@ -796,13 +896,16 @@ inline int mlp_forward(const void* feat, const float* z,
                        int out_dim, int last_op, int R, int taps,
                        int n_anchors, void* stream,
                        const int* gidx = nullptr,
-                       const float* gwgt = nullptr) {
+                       const float* gwgt = nullptr, int views = 1) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 1001;
   if (R < 1 || taps < 1 || out_dim < 1) return 1002;
   if (n_anchors < 1 || n_anchors > kMaxAnchors) return 1007;
   if (wk == nullptr && n_anchors != 1) return 1008;
   if ((gidx == nullptr) != (gwgt == nullptr)) return 1010;
   if (gidx != nullptr && (n_anchors != 1 || wk != nullptr)) return 1010;
+  if (views < 1 || kTileBM % views || R % views) return 1014;
+  if (views > 1 && (z || wk || gidx || taps != 1 || n_layers < 3))
+    return 1015;
   MlpDims d{};
   d.n_layers = n_layers;
   d.out_dim = out_dim;
@@ -824,7 +927,7 @@ inline int mlp_forward(const void* feat, const float* z,
   return launch(static_cast<const float*>(feat), z, wk, out, xp, xp_rows, hs,
                 h_slots, static_cast<const float*>(wf),
                 static_cast<const float*>(wh), wz, b, d, R, taps, n_anchors,
-                static_cast<cudaStream_t>(stream), gidx, gwgt);
+                static_cast<cudaStream_t>(stream), gidx, gwgt, views);
 }
 
 }  // namespace

@@ -42,6 +42,18 @@ engine: a soft-onehot netG's frontal frame takes the hierarchy, its
 rotated frame marches and refines per point, and a soft-onehot netC's
 colour query runs per point.
 
+A multi-view netG (PIFu's ``num_views`` V > 1, ``models/monoport_net.py``)
+takes the V images of one subject, ``image_g`` [V, H, W, 3], and a calib a
+view, [V, 4, 4], and runs the dense frame alone: netG's backbone over the
+V images (on the card one graph at batch V), the hierarchy, each level's
+points projected and sampled in every view (span ``recon.views.sample``)
+and run through the view-pooled per-point kernel
+(``fused_mlp.apply_mlp_views``, f32), then the depth peel and the shading
+of the volume along ``direction``. No ray or anchored head is packed for
+it, and an engine that would run it anywhere else (a mode other than
+'dense', so the march, the rotated path and ``ray_refine``; a netC; a
+mesh) or in bf16 raises ``ValueError`` at construction.
+
 With ``rotated.march=False`` a rotated calib takes the hierarchy instead
 of the march, and ``mode='ray'`` then refines with the anchored query of
 the single coarse-to-fine level. A mesh comes from a dense frame's ``sdf``
@@ -108,7 +120,8 @@ from .frame_graphs import FrameGraphs, leaves
 from .config import CN
 from .models import MonoPortNet
 from .ops.constants import upload_async
-from .ops.cuda.fused_mlp import apply_mlp, pack_mlp_params
+from .ops.cuda.fused_mlp import (apply_mlp, apply_mlp_views, check_views,
+                                 pack_mlp_params)
 from .ops.cuda.fused_ray_mlp import (apply_anchor, apply_ray,
                                      pack_ray_mlp_params)
 from .parallel.mesh import POINT_AXIS, Mesh, check_mesh
@@ -135,9 +148,12 @@ def _scalar_z(net: MonoPortNet) -> bool:
 def _backbone_attrs(net: MonoPortNet, feats) -> dict:
     """A backbone span's attributes beside ``graph``: the backbone's
     ``imf`` and the [h, w, c] of each map of the stage the queries read
-    (the last), from shapes alone."""
-    return {"imf": net.opt_net.backbone.IMF,
-            "stage": [list(f.shape[1:]) for f in feats[-1]]}
+    (the last), from shapes alone; a multi-view net's ``views`` too."""
+    attrs = {"imf": net.opt_net.backbone.IMF,
+             "stage": [list(f.shape[1:]) for f in feats[-1]]}
+    if net.num_views > 1:
+        attrs["views"] = net.num_views
+    return attrs
 
 
 def stage_key(stage: PyramidStage, path: str, rung: Optional[float],
@@ -156,6 +172,24 @@ def _snap_budget(hint: float, ceiling: float) -> float:
         if rung >= hint:
             return min(rung, ceiling)
     return ceiling
+
+
+def _check_views_path(cfg: "EngineCfg", netC, mesh, views: int) -> None:
+    """Raise ValueError where an engine of a multi-view netG would run a
+    path other than the dense hierarchy frame, or a dtype the view-pooled
+    kernel lacks."""
+    where = f"the multi-view netG ({views} views) runs the dense frame alone"
+    if cfg.ray.mode != "dense":
+        raise ValueError(f"{where}: mode={cfg.ray.mode!r} (the march, the "
+                         f"rotated path and ray_refine take one view)")
+    if netC is not None:
+        raise ValueError(f"{where}: no netC (its colour query would need "
+                         f"the same pooling)")
+    if mesh is not None:
+        raise ValueError(f"{where}: no mesh")
+    if cfg.compute_dtype != torch.float32:
+        raise ValueError(f"{where}: the view-pooled kernel has an f32 route "
+                         f"only, not {cfg.compute_dtype}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,18 +347,25 @@ class ReconEngine:
         self.ray_window = cfg.ray.window
         self.march_levels = (tuple(cfg.ray.march_levels)
                              if cfg.ray.march_levels else None)
+        self.views = netG.num_views
+        if self.views > 1:
+            _check_views_path(cfg, netC, mesh, self.views)
         # the compute-dtype copies of the nets (JAX ``_cast`` of params)
         self.netG = self._cast(netG)
         self.netC = self._cast(netC) if netC is not None else None
         # head operands, packed once: the ray and anchored kernels share
         # one packing, the per-point kernel has its own. A net with
         # soft-onehot z gets no ray-structured head (its z is no scalar
-        # column), and ``frame()`` sends its queries per point.
+        # column), and ``frame()`` sends its queries per point; nor does a
+        # multi-view net, whose queries run the view-pooled form.
         dt, dev = self.compute_dtype, self.device
         point_g = pack_mlp_params(self.netG.surface_classifier, dt, dev)
         self.point_g = lambda x: apply_mlp(point_g, x)
+        if self.views > 1:
+            check_views(point_g, self.views)
+            self.point_g = lambda x: apply_mlp_views(point_g, x, self.views)
         self.head_g = self.anchor_g = self.head_c = self.point_c = None
-        if _scalar_z(self.netG):
+        if _scalar_z(self.netG) and self.views == 1:
             ray_g = pack_ray_mlp_params(self.netG.surface_classifier, dt, dev)
             self.head_g = lambda feat, z: apply_ray(ray_g, feat, z)
             self.anchor_g = lambda feat_k, w, z: apply_anchor(ray_g, feat_k,
@@ -424,7 +465,16 @@ class ReconEngine:
         return [[f.float() for f in fs] for fs in feats]
 
     def _filter_g(self, image):
-        return self._feats_f32(self.netG.filter(image))
+        if self.views == 1:
+            return self._feats_f32(self.netG.filter(image))
+        # a multi-view net's views one at a time, their maps concatenated:
+        # at batch 4 in f32 (TF32 off, cuDNN's heuristics) the hourglass's
+        # convolutions take an FFT algorithm that an H100 ran 47x slower
+        # than four calls at batch 1, with 25x the memory (PERF.md)
+        per_view = [self.netG.filter(image[v:v + 1])
+                    for v in range(image.shape[0])]
+        return self._feats_f32([[torch.cat(maps) for maps in zip(*stage)]
+                                for stage in zip(*per_view)])
 
     def _filter_c_f32(self, image, prior):
         return self._feats_f32(self.netC.filter(image, prior))
@@ -513,9 +563,27 @@ class ReconEngine:
         return recorded
 
     def _query_occ_fn(self, feats, calib):
+        if self.views > 1:
+            return self._query_views_fn(feats, calib)
+
         def query_occ(pts):
             return self.netG.query(feats, pts, calib, head_fn=self.point_g)[0]
         return self._recorded("query_occ", self._shard_rows(query_occ))
+
+    def _query_views_fn(self, feats, calib):
+        """A multi-view net's occupancy query of [B, N, 3] points: the V
+        views' projection and sampling under the span
+        ``recon.views.sample``, then the view-pooled head; its ``query``
+        record counts the points, with ``views``."""
+        net = self.netG
+
+        def query_views(pts):
+            profiling.query("query_occ", pts.shape[1], views=self.views)
+            with profiling.span("recon.views.sample"):
+                x, in_img = net.sample_views(feats[-1], pts, calib)
+            pred = self.point_g(x)
+            return in_img[..., None].to(pred.dtype) * pred
+        return query_views
 
     def _query_taps_fn(self, feats, calib):
         def query_taps(xy, z_taps):
@@ -672,6 +740,8 @@ class ReconEngine:
                     calib = np.eye(4, dtype=np.float32)[None]
                 if isinstance(calib, torch.Tensor):
                     calib = calib.detach().cpu().numpy()
+                if self.views > 1:
+                    self._check_views_inputs(image_g, calib)
                 cfg = self.config
                 use_taps = self._calib_taps_ok(calib)
                 use_grid = self._calib_grid_ok(calib)
@@ -693,6 +763,14 @@ class ReconEngine:
                                   rung=compact, plan=rot_k)
             return self._frame(image_g, image_c, calib_t, use_taps,
                                use_grid, ray_g, march, compact, rot_k)
+
+    def _check_views_inputs(self, image_g, calib) -> None:
+        v = self.views
+        if image_g.shape[0] != v or np.shape(calib) != (v, 4, 4):
+            raise ValueError(
+                f"the multi-view netG takes {v} images and {v} calibs, one "
+                f"a view: image_g [{v}, H, W, 3], calib [{v}, 4, 4]; got "
+                f"{tuple(image_g.shape)} and {np.shape(calib)}")
 
     def _path(self, use_grid: bool, ray_g: bool, march: bool) -> str:
         """The frame's path, as its span names it: grid, taps, rotated
@@ -852,7 +930,11 @@ class ReconEngine:
         rotated frame does not take the clip off the grid path (the JAX
         engine groups a clip by path for the same end). Keys are those
         every frame has: a rotated frame's ``compact_dropped`` goes when
-        the clip also holds frontal frames."""
+        the clip also holds frontal frames. A multi-view net takes no
+        clip."""
+        if self.views > 1:
+            raise ValueError(f"the multi-view netG ({self.views} views) "
+                             f"takes one subject a frame(): no clip")
         b = images_g.shape[0]
         if calibs is None:
             calibs = np.tile(np.eye(4, dtype=np.float32), (b, 1, 1))

@@ -7,6 +7,15 @@ Layouts follow the JAX package: images NHWC [B, H, W, C]; features
 4-stack HGFilter) through the plain head; ``train=False`` queries the last
 stage only, as the engine's frames do. ``get_loss`` averages the MSE / L1
 over the stages; ``forward`` with labels returns ``(pred, loss)``.
+
+``num_views`` > 1 (the net's config, default 1) is PIFu's multi-view net
+(PIFu section 3.3): ``filter`` takes the V images of each subject, [B *
+V, H, W, C], and ``query`` takes the subject's points [B, N, 3] with one
+calib a view, [B * V, 4, 4]. Each point is projected into every view and
+sampled from that view's maps with that view's z feature
+(``sample_views``), and the head pools the views at its middle layer. As
+in PIFu's ``query`` at batch 1, a prediction is masked by the point's
+being inside view 0's image.
 """
 
 from __future__ import annotations
@@ -57,9 +66,13 @@ class MonoPortNet(nn.Module):
         if opt.projection not in ("orthogonal", "perspective"):
             raise ValueError(opt.projection)
         self.opt_net = opt
+        self.num_views = int(opt.get("num_views", 1))
+        if self.num_views < 1:
+            raise ValueError(f"num_views {self.num_views}")
         self.image_filter = BACKBONES[opt.backbone.IMF](opt.backbone)
+        views = {"num_views": self.num_views} if self.num_views > 1 else {}
         self.surface_classifier = HEADS[opt.head.IMF](
-            opt.head, filter_channels=head_channels)
+            opt.head, filter_channels=head_channels, **views)
         self.normalizer = NORMALIZERS[opt.normalizer.IMF](opt.normalizer)
         self.projection = PROJECTIONS[opt.projection]
 
@@ -83,6 +96,9 @@ class MonoPortNet(nn.Module):
         stage: every stage with ``train``, else the last one."""
         if not train:
             feats_stages = feats_stages[-1:]
+        if self.num_views > 1:
+            return self._query_views(feats_stages, points, calibs,
+                                     transforms, head_fn)
         xyz = points if calibs is None else self.projection(
             points, calibs, transforms)
         xy, z = xyz[..., :2], xyz[..., 2:3]
@@ -94,6 +110,44 @@ class MonoPortNet(nn.Module):
                           + [z_feat.to(feats[0].dtype)], dim=-1)
             pred = (head_fn(x) if head_fn is not None
                     else self.surface_classifier(x))
+            preds.append(in_img[..., None].to(pred.dtype) * pred)
+        return preds
+
+    def sample_views(self, feats: Sequence[torch.Tensor],
+                     points: torch.Tensor, calibs: torch.Tensor,
+                     transforms: Optional[torch.Tensor] = None):
+        """The multi-view head input of [B, N, 3] points over one stage's
+        maps of the B * V views (calibs [B * V, 4, 4]) -> (x [B, N, V,
+        C_in] point-major: a point's V rows together, each a view's
+        sampled features and z feature; view 0's in-image mask [B, N])."""
+        v = self.num_views
+        b, n, _ = points.shape
+        pts = points[:, None].expand(b, v, n, 3).reshape(b * v, n, 3)
+        xyz = self.projection(pts, calibs, transforms)
+        xy = xyz[..., :2]
+        z_feat = self.normalizer(xyz[..., 2:3])            # [B * V, N, Z]
+        z_feat = z_feat.reshape(b, v, n, -1).permute(0, 2, 1, 3)
+        x = torch.cat([index(f, xy).reshape(b, v, n, -1).transpose(1, 2)
+                       for f in feats] + [z_feat.to(feats[0].dtype)], dim=-1)
+        xy0 = xy.reshape(b, v, n, 2)[:, 0]
+        return x, _in_image(xy0[..., 0], xy0[..., 1])
+
+    def _query_views(self, feats_stages: FeatStages, points, calibs,
+                     transforms, head_fn) -> list[torch.Tensor]:
+        """``query`` of a multi-view net: ``head_fn`` takes the point-major
+        [B, N, V, C_in] rows (``ops/cuda/fused_mlp.apply_mlp_views``); the
+        plain head its [B * V, N, C_in] layout."""
+        if calibs is None:
+            raise ValueError("a multi-view query needs a calib a view")
+        preds = []
+        for feats in feats_stages:
+            x, in_img = self.sample_views(feats, points, calibs, transforms)
+            if head_fn is not None:
+                pred = head_fn(x)
+            else:
+                b, n, v, c = x.shape
+                pred = self.surface_classifier(
+                    x.permute(0, 2, 1, 3).reshape(b * v, n, c))
             preds.append(in_img[..., None].to(pred.dtype) * pred)
         return preds
 

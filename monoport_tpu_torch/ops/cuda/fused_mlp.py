@@ -39,6 +39,22 @@ through ctypes (``build.py``). Two dtypes, two routes:
 ``apply_mlp`` launches the kernel of the tensor's dtype for CUDA tensors
 and runs ``apply_mlp_plain`` for CPU tensors; any other device raises, and
 a failed check, build or launch raises.
+
+``apply_mlp_views`` is the view-pooled form of the f32 route, PIFu's
+multi-view head (``SurfaceClassifier(num_views=V)``): V rows a point,
+point-major, so that a 32-row block holds whole points. Layers 0 ..
+n_layers // 2 run a row; the block then replaces each point's activations
+by their mean over its views, in shared memory (or the block's slot of the
+activation scratch); the later layers run on the pooled rows, their skip
+term the mean of the views' input projections (``W_f`` is linear, so that
+is the projection of the views' mean input, up to rounding); one output
+row a point. No V x N x 1024 or x 512 activation reaches device memory:
+only the xp scratch, as in the per-point form. The V rows of a point are
+in one block, so V is a power of two up to 32. The later layers' GEMM
+still runs all 32 rows of the block (each point's V copies of its pooled
+row): about 2% more operations than the pooled rows need at V = 4 on
+netG.
+bf16 has no such form, and raises.
 """
 
 from __future__ import annotations
@@ -48,8 +64,8 @@ from dataclasses import dataclass
 import torch
 
 from . import wgmma
-from .fused_ray_mlp import (RayMlpPacked, launch_packed, pack_head, pad_feat,
-                            run_layers)
+from .fused_ray_mlp import (F32_BM, RayMlpPacked, _activate, launch_packed,
+                            pack_head, pad_feat, run_layers)
 
 LIBRARY = "fused_mlp"
 
@@ -88,6 +104,73 @@ def apply_mlp_plain(p: RayMlpPacked, x: torch.Tensor) -> torch.Tensor:
     x [B, N, C_in] -> [B, N, out_dim] f32."""
     xp = torch.matmul(pad_feat(p, x).float(), p.wf.float().t())
     return run_layers(p, lambda lo, hi: xp[..., lo:hi] + p.b[lo:hi])
+
+
+def _pool_views(x: torch.Tensor, views: int) -> torch.Tensor:
+    """[..., V, C] -> [..., C]: the views summed in order, then scaled by
+    1 / V, as the kernel pools them."""
+    acc = x[..., 0, :]
+    for v in range(1, views):
+        acc = acc + x[..., v, :]
+    return acc * (1.0 / views)
+
+
+def check_views(p: RayMlpPacked, views: int) -> None:
+    """Raise ValueError unless the view-pooled form takes this pack and
+    view count."""
+    if p.dtype != torch.float32:
+        raise ValueError(f"the view-pooled per-point kernel has an f32 route "
+                         f"only: no {p.dtype} form (run the multi-view net "
+                         f"in float32)")
+    if views < 2 or views > F32_BM or F32_BM % views:
+        raise ValueError(f"{views} views: the view-pooled kernel takes a "
+                         f"power of two from 2 to {F32_BM}")
+    if len(p.widths) - 1 < 3:
+        raise ValueError("the view-pooled kernel pools at a hidden layer: "
+                         "the head needs 3 layers or more")
+
+
+def apply_mlp_views_plain(p: RayMlpPacked, x: torch.Tensor,
+                          views: int) -> torch.Tensor:
+    """Plain-PyTorch version of the view-pooled kernel, with its rounding
+    points: x [B, N, V, C_in] -> [B, N, out_dim] f32."""
+    check_views(p, views)
+    xp = torch.matmul(pad_feat(p, x).float(), p.wf.float().t())
+    n_layers = len(p.widths) - 1
+    pool = n_layers // 2
+    h = None
+    for i, off in enumerate(p.xoff):
+        lo, hi = off, off + p.widths[i + 1]
+        sp = xp[..., lo:hi] if i <= pool else _pool_views(xp[..., lo:hi],
+                                                          views)
+        acc = sp + p.b[lo:hi]
+        if i > 0:
+            acc = acc + torch.matmul(h, p.wh_layer(i).float().t())
+        h = _activate(acc, i == n_layers - 1, p.last_op)
+        if i == pool:
+            h = _pool_views(h, views)
+    return h[..., :p.out_dim]
+
+
+def apply_mlp_views(p: RayMlpPacked, x: torch.Tensor,
+                    views: int) -> torch.Tensor:
+    """x [B, N, V, C_in] (a point's V views together) -> [B, N, out_dim]
+    f32: the view-pooled kernel for CUDA tensors (f32 packs only), the
+    plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return apply_mlp_views_plain(p, x, views)
+    if x.device.type != "cuda":
+        raise ValueError(f"the fused MLP kernels have no path for device "
+                         f"{x.device}")
+    check_views(p, views)
+    b_, n, v, _ = x.shape
+    if v != views:
+        raise ValueError(f"x holds {v} views, the head pools {views}")
+    xr = pad_feat(p, x).reshape(b_ * n * v, p.widths[0]).contiguous()
+    out = launch_packed(LIBRARY, "fused_mlp_views_forward", p, xr,
+                        b_ * n * v, 1, views=views)
+    apply_mlp.launches += 1
+    return out.reshape(b_, n, p.out_dim)
 
 
 def _run_wgmma(p: PointMlpPacked, xr: torch.Tensor, function: str):

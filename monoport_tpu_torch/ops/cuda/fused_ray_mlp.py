@@ -359,13 +359,15 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
                   z: torch.Tensor | None = None,
                   wk: torch.Tensor | None = None,
                   n_anchors: int | None = None,
-                  gather: tuple | None = None) -> torch.Tensor:
+                  gather: tuple | None = None,
+                  views: int | None = None) -> torch.Tensor:
     """Launch one of the f32 routes' C entry points (``csrc/mlp_tiles.cuh``)
     on ``feat``'s device and stream: ``feat`` [n_rays * K, widths[0]] f32,
     ``z`` [n_rays, taps] f32, ``wk`` [n_rays, taps, K] f32 -> [n_rays,
     taps, out_dim] f32. ``gather`` = (idx [n_rays, 4] i32, wgt [n_rays, 4]
-    f32): ``feat`` is then the [H*W, widths[0]] table those index. Raises
-    when the launch is refused."""
+    f32): ``feat`` is then the [H*W, widths[0]] table those index.
+    ``views``: the view-pooled form, ``views`` rows a point -> [n_rays /
+    views, 1, out_dim]. Raises when the launch is refused."""
     dev = feat.device
     gidx, gwgt = gather or (None, None)
     if p.dtype != torch.float32 or p.wf_tiles is None:
@@ -390,7 +392,7 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
                     F32_SLOTS_PER_SM * wgmma.sm_count(dev.index))
         hs = torch.empty(slots, F32_BM, sum(f32_activation_lds(p.widths)),
                          device=dev, dtype=torch.float32)
-    out = torch.empty(n_rays, taps, p.out_dim, device=dev,
+    out = torch.empty(n_rays // (views or 1), taps, p.out_dim, device=dev,
                       dtype=torch.float32)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     args = [(ptr, feat.data_ptr())]
@@ -411,6 +413,8 @@ def launch_packed(library: str, function: str, p: RayMlpPacked,
         args.append((i32, taps))
     if n_anchors is not None:
         args.append((i32, n_anchors))
+    if views is not None:
+        args.append((i32, views))
     with torch.cuda.device(dev):
         args.append((ptr, torch.cuda.current_stream(dev).cuda_stream))
         fn = build.bind(library, function, [a[0] for a in args])

@@ -10,7 +10,8 @@ program's spans on a track of their own, written as a Chrome trace file
 
 Spans and queries. The engine marks its layers with ``span(name,
 **attrs)`` (a context manager) and each head query with ``query(name,
-rows, taps, anchors)``. Both do nothing unless a recorder is on
+rows, taps, anchors, views)`` (``views``: the views pooled a row of a
+multi-view net's query; ``rows`` still counts points). Both do nothing unless a recorder is on
 (``recording()``) or, for a query, a ``collecting`` block: the off path is
 a module-level check (a span's returns a shared no-op context), with no
 clock reading and no ``record_function``.
@@ -141,13 +142,15 @@ class Span:
 class Query(NamedTuple):
     """One head query: ``rows`` asked for (points, or rays with ``taps``
     z-taps each and ``anchors`` feature anchors a ray; 0 = none), under
-    ``span`` (the innermost span open at the call) of ``frame``."""
+    ``span`` (the innermost span open at the call) of ``frame``; a point
+    of a multi-view query is ``views`` head rows, pooled."""
     name: str
     rows: int
     taps: int
     anchors: int
     span: Optional[Span]
     frame: Optional[int]
+    views: int = 1
 
 
 class Recorder:
@@ -167,12 +170,13 @@ class Recorder:
             stack = self._local.stack = []
         return stack
 
-    def _query(self, name: str, rows: int, taps: int, anchors: int):
+    def _query(self, name: str, rows: int, taps: int, anchors: int,
+               views: int = 1):
         stack = self._stack()
         top = stack[-1] if stack else None
         self.queries.append(Query(name, int(rows), int(taps), int(anchors),
                                   top, top.frame if top is not None
-                                  else None))
+                                  else None, int(views)))
 
 
 class _Off:
@@ -198,19 +202,22 @@ def span(name: str, **attrs):
     return Span(rec, name, attrs)
 
 
-def query(name: str, rows: int, taps: int = 1, anchors: int = 0) -> None:
+def query(name: str, rows: int, taps: int = 1, anchors: int = 0,
+          views: int = 1) -> None:
     """Record one head query of ``rows`` rows (host-side shapes, before
     any sharding) under the span open on this thread; nothing while no
     recorder is on. Inside a ``collecting`` block of this thread the
-    record goes to its list instead."""
+    record goes to its list instead (with ``views`` last where it is not
+    1)."""
     if _SINKS:
         sink = _SINKS.get(threading.get_ident())
         if sink is not None:
-            sink.append((name, int(rows), int(taps), int(anchors)))
+            sink.append((name, int(rows), int(taps), int(anchors))
+                        + ((int(views),) if views != 1 else ()))
             return
     rec = _RECORDER
     if rec is not None:
-        rec._query(name, rows, taps, anchors)
+        rec._query(name, rows, taps, anchors, views)
 
 
 @contextlib.contextmanager

@@ -19,7 +19,11 @@ too, and whole frames of every march path (frontal grid, in-plane taps,
 rotated at each rung under the 0.5 ceiling) bit-equal to the eager calls
 across changes of image and calib, each frame's returned depth and valid
 unchanged by the next frame (``frame_check.replay_check``), one capture a
-signature.
+signature. The f32 view-pooled form (PIFu's multi-view head) against its
+plain version at the multi-view cell's largest level, 262,144 points x 4
+views, and at ragged points, 2 and 8 views and the wide head's activation
+scratch; a small multi-view dense frame with no stream sync, one launch a
+level, against the benchmark's plain reference on the card.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q`` on a machine
@@ -616,3 +620,76 @@ def test_replayed_backbones_and_frames_equal_eager(card, config):
     assert res["signatures"] == sum(res["keys"].values())
     for n, keys in res["keys"].items():
         assert res["counts"][n]["capture"] == keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,points,views", [
+    ("netG", 262_144, 4), ("netG", 4_097, 4), ("netG", 33, 8),
+    ("small", 1, 2), ("wide", 2_113, 4)])
+def test_views_kernel_matches_plain(card, name, points, views):
+    """The f32 view-pooled form (PIFu's multi-view head) against its plain
+    version: the hg4-mv4-dense cell's largest level (262,144 points x 4
+    views), ragged point counts, 2 and 8 views, and the wide head's
+    device-memory activations."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p = tmlp.pack_mlp_params(_head(name), dtype=torch.float32,
+                                 device=card)
+        gen = torch.Generator(device=card)
+        gen.manual_seed(11)
+        x = torch.randn(1, points, views, p.c_f, generator=gen, device=card)
+        launches = tmlp.apply_mlp.launches
+        got = tmlp.apply_mlp_views(p, x, views)
+        assert tmlp.apply_mlp.launches == launches + 1
+        want = tmlp.apply_mlp_views_plain(p, x, views)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got.shape == (1, points, p.out_dim)
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_multiview_frame_on_the_card(card):
+    """A small multi-view dense frame (1-stack HG netG at 64^2, 4 views,
+    levels 9-17-33) on the card: one view-pooled launch a level, no stream
+    sync once its backbone graph is captured, and the benchmark's plain
+    reference on the card (f32, TF32 off) within the CPU test's limits
+    (tests/test_torch_multiview.py)."""
+    from cardbench.harness import views, weights as bench_weights
+    from cardbench.reference.frame import frame_path, load_nets
+    from torch_multiview_small import RECON, SEED, ring_spec, small_config
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        config = small_config()
+        state = bench_weights.seeded_state(config["netG"], config["weights"],
+                                           SEED, card)
+        tr = views.generate(ring_spec(), SEED, 64, card)
+        eng, _ = views.build_engine(config, {"netG": state}, card)
+        images, calibs = tr.images[0], tr.calibs[0]
+        eng.frame(images, None, calibs)                  # captures netG
+        launches = tmlp.apply_mlp.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = eng.frame(images, None, calibs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert tmlp.apply_mlp.launches == launches + len(RECON["resolutions"])
+        assert eng.graphs.counts["netG"]["replay"] == 1
+        ref = frame_path("dense_views").Frame(
+            config, load_nets(config, {"netG": state}, card))
+        with torch.no_grad():
+            want = ref(images, None, calibs)
+        torch.cuda.synchronize()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    torch.testing.assert_close(got["sdf"], want["sdf"], atol=2e-5, rtol=0)
+    gv, wv = got["valid"].bool(), want["valid"].bool()
+    assert (gv != wv).float().mean() <= 0.01
